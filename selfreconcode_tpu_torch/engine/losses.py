@@ -1,0 +1,76 @@
+"""Loss terms of the per-subject optimization (torch port of
+``selfreconcode_tpu/engine/losses.py``)."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..utils.math import gm_robust
+
+
+def masked_mean(x, valid, eps=1e-8):
+    w = valid.to(x.dtype)
+    return (x * w).sum() / w.sum().clamp_min(eps)
+
+
+def iou_mask_loss(pred_masks, gt_masks):
+    """1 - IoU per frame, averaged."""
+    N = pred_masks.shape[0]
+    p = pred_masks.reshape(N, -1)
+    g = gt_masks.reshape(N, -1)
+    inter = (p * g).sum(1)
+    union = (p + g - p * g).abs().sum(1)
+    return (1.0 - inter / union.clamp_min(1e-8)).mean()
+
+
+def max_pool_mask(mask, radius_px: int):
+    """(B,H,W) max-pool, kernel 2r+1, stride 1, same size (gt dilation)."""
+    if radius_px <= 0:
+        return mask
+    return F.max_pool2d(mask[:, None], 2 * radius_px + 1, stride=1,
+                        padding=radius_px)[:, 0]
+
+
+def dct_prior_loss(dctnull, posed_joints_windows):
+    """|DCTNull @ J(t)| averaged; dctnull (K', Nw), joints (B, Nw, 24, 3)."""
+    B, Nw = posed_joints_windows.shape[:2]
+    traj = posed_joints_windows.reshape(B, Nw, 72)
+    return torch.einsum("kn,bnj->bkj", dctnull, traj).abs().mean()
+
+
+def _per_frame_mean(per_ray, batch_inds, valid, num_frames: int):
+    w = valid.to(per_ray.dtype)
+    sums = per_ray.new_zeros(num_frames).index_add(0, batch_inds, per_ray * w)
+    cnts = per_ray.new_zeros(num_frames).index_add(0, batch_inds, w)
+    per_frame = sums / cnts.clamp_min(1e-8)
+    return masked_mean(per_frame, cnts > 0)
+
+
+def color_l1_loss(pred, gt, batch_inds, valid, num_frames: int):
+    """Per-ray L1 summed over channels, mean per frame, then mean."""
+    return _per_frame_mean((gt - pred).abs().sum(-1), batch_inds, valid,
+                           num_frames)
+
+
+def normal_loss(gt_normals_pulled, sdf_normals, weights, batch_inds, valid,
+                num_frames: int):
+    """||J^T n_gt - n_sdf|| weighted, mean per frame, then mean."""
+    per_ray = torch.linalg.norm(gt_normals_pulled - sdf_normals,
+                                dim=-1) * weights
+    return _per_frame_mean(per_ray, batch_inds, valid, num_frames)
+
+
+def def_consistency_loss(def_verts, lbs_only_verts, vert_valid, c: float):
+    """GM(||D(v) - LBS(v)||^2) mean over template verts; (B,V,3) inputs."""
+    off2 = ((def_verts - lbs_only_verts) ** 2).sum(-1)
+    if c > 0:
+        per = gm_robust(off2, c, square=True)
+    else:
+        per = torch.sqrt(off2.clamp_min(1e-12))
+    # the weight is (1, V): the sum over frames is divided by V, as in JAX
+    return masked_mean(per, vert_valid[None, :])
+
+
+def sdf_anchor_loss(sdf_at_verts, vert_valid, shrink_radius: float):
+    """|sdf(template verts) + shrink| mean."""
+    return masked_mean((sdf_at_verts + shrink_radius).abs(), vert_valid)
