@@ -5,18 +5,30 @@
 
 Phases:
   1. device: the card's name and power limit (nvidia-smi) and torch's view;
-  2. build: nvcc builds the splat kernels from csrc/splat.cu;
-  3. main path: a 12-frame 512x512 synthetic scene through
+  2. build: one nvcc per CUDA source, all started together:
+     csrc/splat.cu (the splat kernels) and csrc/mesh_raster.cu (the mesh
+     rasterizer);
+  3. training path: a 12-frame 512x512 synthetic scene through
      ``selfreconcode_tpu_torch.cli.train.main`` with configs/config.conf at
      full width (toy SMPL body, random weights from a seed), --max-epochs 0:
      skinner build, 1200 IGR iterations, remesh, 4 coarse steps, checkpoint.
-     The kernels' launch counters are zeroed right before and read right
-     after; both kernels must have run on that path;
-  4. kernel vs plain: each kernel against its plain PyTorch version on the
-     card at shape A (1080x1080 frame, 134k points on a body-sized shell,
-     radius 0.0041) and shape B (the trained template deformed into frame 0
-     of the 512x512 scene, radius 0.006), with median times over 25 runs;
-  5. the kernels' JSON line, then the device JSON line last.
+     The splat kernels' launch counters are zeroed right before and read
+     right after; both kernels must have run on that path;
+  4. inference path: ``selfreconcode_tpu_torch.cli.infer.main`` on phase
+     3's checkpoint, 2 frames (template remesh, Phong and def1 renders,
+     maskE, colour solve).  The mesh kernel's counter is zeroed right before
+     and read right after: >= 2 launches per frame; errors.txt must parse
+     with 2 evaluated frames, each maskE finite and in [0, 1];
+  5. splat kernels vs plain on the card at shape A (1080x1080 frame, 134k
+     points on a body-sized shell, radius 0.0041) and shape B (the trained
+     template deformed into frame 0 of the 512x512 scene, radius 0.006),
+     and the dense-cell forms at shape B's bins laid out densely, with
+     median times over 25 runs;
+  6. mesh kernel vs plain on the card at shape C (phase 4's template, the
+     remesh of the trained SDF, deformed into frame 0 at 512x512 as the
+     geometry pass deforms it) and shape D (the same at 1080x1080, focal
+     and principal point scaled by 1080/512);
+  7. the kernels' JSON line, then the device JSON line last.
 
 Imports nothing of JAX.  Exits nonzero when any phase fails or no CUDA card
 is present; there is no CPU fallback.
@@ -25,12 +37,15 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os.path as osp
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = osp.dirname(osp.abspath(__file__))
 FWD_TOL = 1e-4          # accumulator: |err| <= FWD_TOL * max(1, |acc|).  A
@@ -40,6 +55,9 @@ FWD_TOL = 1e-4          # accumulator: |err| <= FWD_TOL * max(1, |acc|).  A
                         # a pure absolute 1e-4 is out of reach there.
 MASK_TOL = 1e-6         # mask 1 - exp(acc), absolute
 BWD_TOL = 1e-4          # per-point gradient, relative to max|g|
+# mesh kernel vs plain: the kernel is built with -fmad=false and rounds like
+# the plain version, and both keep the first minimum in run order, so every
+# output must be identical: hit mask, z, face id and barycentrics
 
 
 def phase(n, msg):
@@ -154,6 +172,113 @@ def compare_kernels(label, cam, pts, radius, seed):
     return out
 
 
+def compare_dense(label, cam, pts, radius, seed):
+    """The dense-cell splat forms vs their plain versions at one shape's
+    bins laid out densely: every cell a row of cap slots, empty slots at
+    BIG."""
+    import torch
+    from selfreconcode_tpu_torch.ops import splat_kernels as SK
+    from selfreconcode_tpu_torch.ops.rasterize import (splat_bins,
+                                                       splat_cell_size)
+    from selfreconcode_tpu_torch.render.camera import transform_points_screen
+
+    H, W = cam.H, cam.W
+    r_pix = radius * W / 2.0
+    with torch.no_grad():
+        s = transform_points_screen(cam, pts)
+        valid = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
+        b = splat_bins(s[:, 0], s[:, 1], s[:, 2], valid, r_pix, H, W,
+                       splat_cell_size(r_pix, 9))
+        C = (b.hp // b.cs) * b.ncx
+        cap = -(-int(b.counts.max()) // 64) * 64
+        counts = b.counts.long()
+        cell = torch.repeat_interleave(b.cell_ids.long(), counts)
+        slot = (torch.arange(b.entries.numel(), device=pts.device)
+                - torch.repeat_interleave(b.starts.long(), counts))
+        p = b.entries.long() % pts.shape[0]
+        dense = torch.full((C, 2, cap), SK.BIG, device=pts.device)
+        dense[cell, 0, slot] = s[p, 0]
+        dense[cell, 1, slot] = s[p, 1]
+        gen = torch.Generator(device=pts.device).manual_seed(seed)
+        cot = torch.randn((C, b.cs * b.cs), generator=gen, device=pts.device)
+        args = (b.cs, b.ncx, r_pix)
+        acc_k = SK.splat_fwd_cells(dense, *args)
+        acc_p = SK.splat_fwd_cells_plain(dense, *args)
+        g_k = SK.splat_bwd_cells(dense, cot, *args)
+        g_p = SK.splat_bwd_cells_plain(dense, cot, *args)
+        torch.cuda.synchronize()
+        fwd_err = float(((acc_k - acc_p).abs()
+                         / acc_p.abs().clamp_min(1.0)).max())
+        fwd_abs = float((acc_k - acc_p).abs().max())
+        gmax = float(g_p.abs().max())
+        bwd_err = float((g_k - g_p).abs().max())
+        out = {
+            "shape": label, "cells": C, "cap": cap,
+            "filled_slots": int(b.entries.numel()),
+            "fwd_max_err": fwd_err, "fwd_max_abs_err": fwd_abs,
+            "bwd_max_abs_err": bwd_err, "bwd_max_abs_g": gmax,
+            "fwd_ms": time_ms(lambda: SK.splat_fwd_cells(dense, *args)),
+            "fwd_plain_ms": time_ms(
+                lambda: SK.splat_fwd_cells_plain(dense, *args)),
+            "bwd_ms": time_ms(lambda: SK.splat_bwd_cells(dense, cot, *args)),
+            "bwd_plain_ms": time_ms(
+                lambda: SK.splat_bwd_cells_plain(dense, cot, *args)),
+        }
+    print(f"  {label}: {json.dumps(out)}", flush=True)
+    if not fwd_err <= FWD_TOL:
+        raise AssertionError(f"{label}: dense forward disagrees with the "
+                             f"plain version: {fwd_err} > {FWD_TOL}")
+    if not bwd_err <= BWD_TOL * gmax:
+        raise AssertionError(f"{label}: dense backward disagrees with the "
+                             f"plain version: {bwd_err} > {BWD_TOL} * {gmax}")
+    return out
+
+
+def compare_mesh(label, cam, verts, faces):
+    """The mesh kernel vs its plain version at one shape."""
+    import torch
+    from selfreconcode_tpu_torch.ops import mesh_kernels as MK
+    from selfreconcode_tpu_torch.ops.rasterize import mesh_bins
+
+    with torch.no_grad():
+        rec, b = mesh_bins(cam, verts, faces, 8)
+        args = (rec, b.entries, b.cell_ids, b.starts, b.counts, b.cs, b.ncx,
+                cam.H, cam.W)
+        zk, fk, bk = MK.mesh_fragments(*args)
+        zp, fp, bp = MK.mesh_fragments_plain(*args)
+        torch.cuda.synchronize()
+        hk, hp = fk >= 0, fp >= 0
+        both = hk & hp
+        dz = (zk - zp).abs()
+        diff = both & (fk != fp)
+        bary_err = float((bk - bp).abs()[both].max())
+        # the largest on-screen bbox side of a binned face
+        r = rec[torch.unique(b.entries.long() % rec.shape[0])]
+        xs, ys = r[:, 0:6:2], r[:, 1:6:2]
+        ext = torch.maximum(xs.amax(1) - xs.amin(1), ys.amax(1) - ys.amin(1))
+        out = {
+            "shape": label, "faces": int(faces.shape[0]), "cell_px": b.cs,
+            "max_face_px": float(ext.max()),
+            "entries": int(b.entries.numel()),
+            "active_cells": int(b.cell_ids.numel()),
+            "max_occupancy": int(b.counts.max()),
+            "hit_pixels": int(hp.sum()),
+            "hit_mismatch": int((hk != hp).sum()),
+            "z_max_abs_err": float(dz[both].max()),
+            "face_disagree": int(diff.sum()), "bary_max_abs_err": bary_err,
+            "ms": time_ms(lambda: MK.mesh_fragments(*args)),
+            "plain_ms": time_ms(lambda: MK.mesh_fragments_plain(*args)),
+        }
+    print(f"  {label}: {json.dumps(out)}", flush=True)
+    if (out["hit_mismatch"] or out["face_disagree"] or out["z_max_abs_err"]
+            or bary_err):
+        raise AssertionError(f"{label}: mesh kernel and plain version are "
+                             f"not identical: {out}")
+    if not out["hit_pixels"]:
+        raise AssertionError(f"{label}: nothing rasterized")
+    return out
+
+
 def main_path(workdir):
     """Drive the port's training CLI once; returns (trainer, seconds)."""
     import numpy as np
@@ -208,6 +333,65 @@ def main_path(workdir):
     return trainer, {"splat_fwd": fwd, "splat_bwd": bwd}
 
 
+def infer_path(workdir):
+    """Drive the port's infer CLI on phase 3's checkpoint; returns (the mesh
+    kernel's launch count, the inference template deformed into frame 0 as
+    the geometry pass deforms it, its faces, the camera)."""
+    import numpy as np
+    import torch
+    from selfreconcode_tpu_torch.cli import infer as icli
+    from selfreconcode_tpu_torch.models.deformer import deformer_apply
+    from selfreconcode_tpu_torch.ops import mesh_kernels as MK
+
+    rec = osp.join(workdir, "scene", "rec")
+    n_frames = 2
+    MK.launches.reset()
+    t0 = time.perf_counter()
+    summary = icli.main(["--rec-root", rec, "--toy-smpl", "--frames",
+                         str(n_frames), "--nV", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = MK.launches.mesh_raster_launches
+    print(f"  template: {summary['template_verts']} verts, "
+          f"{summary['template_faces']} faces, remesh "
+          f"{summary['template_s']:.3f} s", flush=True)
+    for fr in summary["frames"]:
+        print(f"  frame {fr['fid']}: geometry {fr['geom_s']:.3f} s, colour "
+              f"{fr['color_s']:.3f} s, hit pixels {fr['hit_pixels']}, "
+              f"converged {fr['converged_pixels']}, maskE "
+              f"{fr['mask_err']:.6f}", flush=True)
+    print(f"  mesh kernel launches {launches}; whole CLI run {wall:.1f} s",
+          flush=True)
+
+    lines = open(osp.join(rec, "errors.txt")).read().splitlines()
+    head = re.fullmatch(r"maskE, mean: (\S+), max: (\S+), min: (\S+)",
+                        lines[0])
+    errs = np.array([float(re.fullmatch(rf"{i}: (\S+)", ln).group(1))
+                     for i, ln in enumerate(lines[2:])])
+    done = errs[errs >= 0]
+    if head is None or lines[1] != "maskE:" or len(done) != n_frames:
+        raise AssertionError(f"errors.txt malformed or {len(done)} frames "
+                             f"evaluated: {lines[:4]}")
+    if not all(math.isfinite(e) and 0.0 <= e <= 1.0 for e in done):
+        raise AssertionError(f"maskE out of [0, 1]: {done}")
+    if launches < 2 * n_frames:
+        raise AssertionError(f"mesh kernel launched {launches} times; the "
+                             f"inference path needs >= {2 * n_frames}")
+    if not osp.isfile(osp.join(rec, "colors", "0.png")):
+        raise AssertionError("no colors/0.png")
+    if not all(fr["hit_pixels"] > 0 for fr in summary["frames"]):
+        raise AssertionError("a frame rasterized no pixel")
+    tr = summary["trainer"]
+    nv = tr.tmp.verts.shape[0]
+    with torch.no_grad():
+        verts0, _ = deformer_apply(
+            tr.nets.translator, tr.skinner, tr.tmp.verts,
+            torch.zeros(nv, dtype=torch.long, device=tr.device),
+            tr.bank["dcond"][:1], tr.bank["poses"][:1], tr.bank["trans"][:1],
+            1.0)
+    return launches, verts0, tr.tmp.faces, tr.camera()
+
+
 def profile_step(trainer):
     """One more coarse step under torch.profiler: prints the device busy
     share and the top 40 ops by device time."""
@@ -244,26 +428,40 @@ def main(argv=None):
 
     card = device_phase()
     import torch
+    from selfreconcode_tpu_torch.ops import mesh_kernels as MK
     from selfreconcode_tpu_torch.ops import splat_kernels as SK
-    from selfreconcode_tpu_torch.render.camera import make_camera
+    from selfreconcode_tpu_torch.render.camera import Camera, make_camera
 
     t0 = time.perf_counter()
-    SK.build(verbose=True)
-    SK._load()
-    phase(2, f"built {SK.library_path().relative_to(ROOT)} in "
-             f"{time.perf_counter() - t0:.2f} s")
+    libs = (SK.LIB, MK.LIB)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        built = list(pool.map(lambda lib: lib.build(verbose=True), libs))
+    for lib in libs:
+        lib.load()
+    phase(2, f"built {[str(p.relative_to(ROOT)) for p in built]} in "
+             f"{time.perf_counter() - t0:.2f} s (one nvcc each, together)")
 
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as work:
-        phase(3, "main path: cli.train.main on a 12-frame 512x512 scene")
+        phase(3, "training path: cli.train.main on a 12-frame 512x512 scene")
         trainer, launched = main_path(work)
         if args.profile:
             profile_step(trainer)
         with torch.no_grad():
             pts_b = trainer.deformed_template([0])[0]
         cam_b = trainer.camera()
+        del trainer
+        phase(4, "inference path: cli.infer.main on the phase-3 checkpoint")
+        launched["mesh_raster"], verts_c, faces, cam_c = infer_path(work)
+    # the dense splat forms have no caller: their counts, zeroed before
+    # phase 3 and read after phase 4, cover both main paths
+    launched["splat_fwd_cells"] = SK.launches.splat_fwd_cells_launches
+    launched["splat_bwd_cells"] = SK.launches.splat_bwd_cells_launches
+    print(f"  dense splat forms launched on the main paths: fwd "
+          f"{launched['splat_fwd_cells']}, bwd {launched['splat_bwd_cells']}",
+          flush=True)
 
-    phase(4, f"kernel vs plain on the card ({card})")
+    phase(5, f"splat kernels vs plain on the card ({card})")
     H = W = 1080
     cam_a = make_camera([0.9 * W] * 2, [W / 2, H / 2], [1, 0, 0, 0],
                         [0, 0, 2.5], H, W, device=dev)
@@ -271,24 +469,54 @@ def main(argv=None):
                          device=dev)
     res_a = compare_kernels("A 1080x1080 134k pts r=0.0041", cam_a, pts_a,
                             0.0041, 1)
-    res_b = compare_kernels(f"B 512x512 {pts_b.shape[0]} pts r=0.006",
-                            cam_b, pts_b, 0.006, 2)
+    label_b = f"B 512x512 {pts_b.shape[0]} pts r=0.006"
+    res_b = compare_kernels(label_b, cam_b, pts_b, 0.006, 2)
+    res_bd = compare_dense(label_b + " dense", cam_b, pts_b, 0.006, 3)
 
-    src = "selfreconcode_tpu_torch/csrc/splat.cu"
+    phase(6, f"mesh kernel vs plain on the card ({card})")
+    res_c = compare_mesh(f"C 512x512 {faces.shape[0]} faces", cam_c,
+                         verts_c, faces)
+    k = 1080 / cam_c.W
+    cam_d = Camera(focal=cam_c.focal * k, principal=cam_c.principal * k,
+                   R=cam_c.R, T=cam_c.T, H=1080, W=1080)
+    res_d = compare_mesh(f"D 1080x1080 {faces.shape[0]} faces", cam_d,
+                         verts_c, faces)
+
+    splat_src = "selfreconcode_tpu_torch/csrc/splat.cu"
+    dense_note = "no caller in either package; launched by chip_smoke.py only"
     kernels = [
-        {"name": "splat_fwd", "route": "cuda", "source": src,
+        {"name": "mesh_raster", "route": "cuda",
+         "source": "selfreconcode_tpu_torch/csrc/mesh_raster.cu",
+         "replaces": "selfreconcode_tpu/ops/pallas_raster.py:116",
+         "launches": launched["mesh_raster"],
+         "max_abs_err": max(res_c["z_max_abs_err"], res_d["z_max_abs_err"],
+                            res_c["bary_max_abs_err"],
+                            res_d["bary_max_abs_err"]),
+         "ms": res_c["ms"], "plain_ms": res_c["plain_ms"]},
+        {"name": "splat_fwd_cells", "route": "cuda", "source": splat_src,
+         "replaces": "selfreconcode_tpu/ops/pallas_raster.py:176",
+         "launches": launched["splat_fwd_cells"], "note": dense_note,
+         "max_abs_err": res_bd["fwd_max_abs_err"],
+         "ms": res_bd["fwd_ms"], "plain_ms": res_bd["fwd_plain_ms"]},
+        {"name": "splat_fwd", "route": "cuda", "source": splat_src,
          "replaces": "selfreconcode_tpu/ops/pallas_raster.py:231",
          "launches": launched["splat_fwd"],
          "max_abs_err": max(res_a["mask_max_abs_err"],
                             res_b["mask_max_abs_err"]),
          "ms": res_b["fwd_ms"], "plain_ms": res_b["fwd_plain_ms"]},
-        {"name": "splat_bwd", "route": "cuda", "source": src,
+        {"name": "splat_bwd", "route": "cuda", "source": splat_src,
          "replaces": "selfreconcode_tpu/ops/pallas_raster.py:287",
          "launches": launched["splat_bwd"],
          "max_abs_err": max(res_a["bwd_max_abs_err"],
                             res_b["bwd_max_abs_err"]),
          "ms": res_b["bwd_ms"], "plain_ms": res_b["bwd_plain_ms"]},
+        {"name": "splat_bwd_cells", "route": "cuda", "source": splat_src,
+         "replaces": "selfreconcode_tpu/ops/pallas_raster.py:342",
+         "launches": launched["splat_bwd_cells"], "note": dense_note,
+         "max_abs_err": res_bd["bwd_max_abs_err"],
+         "ms": res_bd["bwd_ms"], "plain_ms": res_bd["bwd_plain_ms"]},
     ]
+    phase(7, "results")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -175,24 +175,31 @@ def batch_iterator(dataset: SceneDataset, sampler: RandomSampler,
 def make_synthetic_scene(root: str, n_frames: int = 8, H: int = 96,
                          W: int = 96, seed: int = 0):
     """Write a tiny scene in the reference's on-disk layout (imgs/ masks/
-    camera.npz smpl_rec.npz): a moving disk silhouette with flat colour; the
-    same files as the JAX package's generator."""
+    camera.npz smpl_rec.npz): a moving disk silhouette with flat colour.
+
+    The images are the JAX package's generator's.  The camera follows the
+    reference data's convention: it sits at the origin (T = 0) and the
+    body's 2.5 m distance is in `trans`, so the fixed frontal camera of the
+    inference's offset-only render (at the mean trans) sees the body from
+    outside.  The JAX generator puts the distance in T instead; camera-space
+    geometry is the same."""
     rng = np.random.default_rng(seed)
     os.makedirs(osp.join(root, "imgs"), exist_ok=True)
     os.makedirs(osp.join(root, "masks"), exist_ok=True)
     fx = fy = 0.9 * W
     cx, cy = W / 2.0, H / 2.0
-    T = np.array([0.0, 0.0, 2.5], np.float32)
     np.savez(osp.join(root, "camera.npz"), fx=fx, fy=fy, cx=cx, cy=cy,
-             quat=np.array([1.0, 0.0, 0.0, 0.0], np.float32), T=T)
+             quat=np.array([1.0, 0.0, 0.0, 0.0], np.float32),
+             T=np.zeros(3, np.float32))
     poses = 0.03 * rng.standard_normal((n_frames, 24, 3)).astype(np.float32)
     trans = np.zeros((n_frames, 3), np.float32)
     trans[:, 0] = 0.15 * np.sin(np.linspace(0, 2 * np.pi, n_frames))
+    trans[:, 2] = 2.5
     np.savez(osp.join(root, "smpl_rec.npz"), poses=poses, trans=trans,
              shape=np.zeros(10, np.float32), gender="neutral")
     yy, xx = np.mgrid[0:H, 0:W]
     for f in range(n_frames):
-        pc = trans[f] + T
+        pc = trans[f]
         col = cx - fx * pc[0] / pc[2]
         row = cy - fy * pc[1] / pc[2]
         r_pix = 0.35 * fx / pc[2]

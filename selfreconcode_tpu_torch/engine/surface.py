@@ -3,7 +3,7 @@ port of ``selfreconcode_tpu/engine/surface.py``).
 
 Each ray's canonical point p solves F(p, theta) = [sdf(p); v x (D(p) - c)] = 0
 by Gauss-Newton (p -= (B^T B)^-1 B^T F, B = dF/dp) for a fixed number of
-iterations.  The iterates carry no graph: every iteration differentiates F
+iterations (``optimize_surface_points``; at inference it may stop early).  The iterates carry no graph: every iteration differentiates F
 w.r.t. a fresh leaf copy of p only.  The gradient w.r.t. theta (SDF and
 translator parameters, dcond, poses, trans, rays, camera centre) is
 dp = -M dF/dtheta with M = (B^T B)^-1 B^T, masked to converged rays with an
@@ -30,6 +30,11 @@ class SurfaceConfig(NamedTuple):
     dthreshold: float = 5e-5
     athreshold_deg: float = 0.02   # from camera.ang_threshold
     step_clip: float = 0.1         # max per-iteration displacement
+    # early_exit=True stops once every point has converged (a host check of
+    # done.all() per iteration; done points no longer move, so the result
+    # is the same).  On at inference, where 30 iterations are asked for and
+    # Newton converges in a few; off in training, which wants no host sync.
+    early_exit: bool = False
 
 
 def _converged(sdf, sin_ang, cfg: SurfaceConfig):
@@ -64,10 +69,9 @@ def _constraint_and_B(nets, pts, batch_inds, dcond, poses, trans, rays,
     return F, B, sdf.detach(), sin_ang
 
 
-def surface_points(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond,
-                   poses, trans, rays, cam_c, init_pts, batch_inds):
-    """nets = (sdf_net, translator, skinner).  Returns (pts (N,3) carrying
-    the IFT gradient, converged mask (N,))."""
+def _newton(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond, poses,
+            trans, rays, cam_c, init_pts, batch_inds):
+    """The Newton loop on detached inputs: (pts, converged, B at pts)."""
     det = dict(dcond=dcond.detach(), poses=poses.detach(),
                trans=trans.detach(), rays=rays.detach(),
                cam_c=cam_c.detach())
@@ -75,6 +79,8 @@ def surface_points(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond,
     done = torch.zeros(pts.shape[0], dtype=torch.bool, device=pts.device)
     eye = torch.eye(3, dtype=pts.dtype, device=pts.device)
     for _ in range(cfg.n_iters):
+        if cfg.early_exit and bool(done.all()):
+            break
         F, B, sdf, sin_ang = _constraint_and_B(nets, pts, batch_inds,
                                                ratio_sdf=ratio_sdf,
                                                ratio_def=ratio_def, **det)
@@ -89,7 +95,25 @@ def surface_points(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond,
     F, B, sdf, sin_ang = _constraint_and_B(nets, pts, batch_inds,
                                            ratio_sdf=ratio_sdf,
                                            ratio_def=ratio_def, **det)
-    done = done | _converged(sdf, sin_ang, cfg)
+    return pts, done | _converged(sdf, sin_ang, cfg), B
+
+
+def optimize_surface_points(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def,
+                            dcond, poses, trans, rays, cam_c, init_pts,
+                            batch_inds):
+    """The Newton solve alone, without a gradient: (pts (N,3), converged
+    mask (N,))."""
+    pts, done, _ = _newton(nets, cfg, ratio_sdf, ratio_def, dcond, poses,
+                           trans, rays, cam_c, init_pts, batch_inds)
+    return pts, done
+
+
+def surface_points(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond,
+                   poses, trans, rays, cam_c, init_pts, batch_inds):
+    """nets = (sdf_net, translator, skinner).  Returns (pts (N,3) carrying
+    the IFT gradient, converged mask (N,))."""
+    pts, done, B = _newton(nets, cfg, ratio_sdf, ratio_def, dcond, poses,
+                           trans, rays, cam_c, init_pts, batch_inds)
 
     # IFT: M = (B^T B)^-1 B^T at the solution, masked like the JAX backward
     btb_inv, inv_ok = inv3x3(torch.einsum("nki,nkj->nij", B, B))
@@ -106,3 +130,12 @@ def surface_points(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond,
     F_theta = torch.where(keep[:, :, 0], F_theta, torch.zeros_like(F_theta))
     corr = -torch.einsum("nik,nk->ni", M, F_theta)
     return pts + (corr - corr.detach()), done
+
+
+def surface_inits_from_fragments(tmp_verts, tmp_faces, pix_to_face, bary):
+    """Per-pixel initial canonical points from rasterized fragments of the
+    deformed template: the template point at the winner's barycentrics.
+    Returns (init_pts (..., 3), valid (...,)), valid = a face was hit."""
+    valid = pix_to_face >= 0
+    tri = tmp_faces[pix_to_face.clamp_min(0).long()].long()    # (..., 3)
+    return (tmp_verts[tri] * bary[..., :, None]).sum(-2), valid

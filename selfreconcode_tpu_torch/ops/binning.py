@@ -1,4 +1,4 @@
-"""Per-primitive 2x2 image-cell coverage entries (torch port of
+"""Image-cell coverage entries of primitive bboxes (torch port of
 ``selfreconcode_tpu/ops/binning.py::bbox_cell_entries``)."""
 from __future__ import annotations
 
@@ -7,23 +7,31 @@ import torch
 
 def bbox_cell_entries(bb_min_x, bb_min_y, bb_max_x, bb_max_y, valid,
                       cell_size: int, ncx: int, ncy: int):
-    """Primitive bboxes are <= cell_size, so each touches at most a 2x2 cell
-    block.  Returns (cell_ids (4M,), entry_valid (4M,)); entry e covers
-    primitive e mod M."""
-    cx0 = torch.floor(bb_min_x / cell_size).to(torch.int32)
-    cy0 = torch.floor(bb_min_y / cell_size).to(torch.int32)
-    cx1 = torch.floor(bb_max_x / cell_size).to(torch.int32)
-    cy1 = torch.floor(bb_max_y / cell_size).to(torch.int32)
-    cells, valids = [], []
-    for dy in (0, 1):
-        for dx in (0, 1):
-            cx = cx0 if dx == 0 else cx1
-            cy = cy0 if dy == 0 else cy1
-            ok = valid & (cx >= 0) & (cx < ncx) & (cy >= 0) & (cy < ncy)
-            if dx:
-                ok = ok & (cx1 > cx0)
-            if dy:
-                ok = ok & (cy1 > cy0)
-            cells.append(torch.where(ok, cy * ncx + cx, torch.zeros_like(cx)))
-            valids.append(ok)
-    return torch.cat(cells), torch.cat(valids)
+    """One entry per (primitive, image cell its bbox covers).
+
+    Returns (cell ids (M,), entry ids (M,)), entry id = k * n + primitive
+    for n primitives, so entry mod n is the primitive.  k is the JAX
+    corner index 2*dy + dx of the cell's offset from the bbox's first cell,
+    each offset capped at 1: a bbox of at most one cell (all that JAX bins;
+    it drops cells beyond its 2x2 block) gets exactly JAX's entry ids, and a
+    wider one gets every cell it covers."""
+    n = bb_min_x.shape[0]
+    cx0 = torch.floor(bb_min_x / cell_size).long()
+    cy0 = torch.floor(bb_min_y / cell_size).long()
+    cx1 = torch.floor(bb_max_x / cell_size).long()
+    cy1 = torch.floor(bb_max_y / cell_size).long()
+    ok = valid & (cx1 >= 0) & (cx0 < ncx) & (cy1 >= 0) & (cy0 < ncy)
+    xa, ya = cx0.clamp(0, ncx - 1), cy0.clamp(0, ncy - 1)
+    nx = cx1.clamp(0, ncx - 1) - xa + 1
+    ny = cy1.clamp(0, ncy - 1) - ya + 1
+    per = torch.where(ok, nx * ny, torch.zeros_like(nx))
+    total = int(per.sum())
+    prim = torch.repeat_interleave(torch.arange(n, device=per.device), per,
+                                   output_size=total)
+    local = (torch.arange(total, device=per.device)
+             - torch.repeat_interleave(torch.cumsum(per, 0) - per, per,
+                                       output_size=total))
+    x = xa[prim] + local % nx[prim]
+    y = ya[prim] + local // nx[prim]
+    k = (2 * (y - cy0[prim]).clamp(max=1) + (x - cx0[prim]).clamp(max=1))
+    return y * ncx + x, k * n + prim

@@ -4,10 +4,13 @@
 Vertices are the crossing grid edges in edge-id order (axis-major, C-order
 within an axis), positioned by iso interpolation from the edge's origin
 corner; faces are the table triangles of the surface cubes in C-order.  Same
-numbering as the JAX package, including its one defect signal: a crossing
-on a +boundary edge has no owning cube and keeps position (0, 0, 0), and is
-counted in n_boundary.  boundary_sides counts inside samples on each bbox
-face (x-, x+, y-, y+, z-, z+).
+numbering as the JAX package.  One difference: the JAX package leaves a
+crossing on a +boundary edge (no cube owns it) at (0, 0, 0), though the
+neighbouring cube's faces use it, which gives long triangles to the origin
+whenever the surface leaves the sweep box; here it sits on its edge like
+every other crossing.  Such crossings are still counted in n_boundary.
+boundary_sides counts inside samples on each bbox face (x-, x+, y-, y+, z-,
+z+).
 """
 from __future__ import annotations
 
@@ -59,10 +62,10 @@ def marching_cubes(volume: torch.Tensor, origin, spacing,
         inside[:, -1].sum(), inside[:, :, 0].sum(), inside[:, :, -1].sum(),
     ]).cpu().numpy()
 
-    # vertex positions: iso interpolation along each crossing edge; an edge
-    # on a +boundary face (no owning cube) stays at (0, 0, 0) as in JAX
+    # vertex positions: iso interpolation along each crossing edge, also on
+    # a +boundary face (an edge no cube owns, which JAX leaves at (0, 0, 0)
+    # though the faces of its neighbouring cube use it)
     verts = []
-    limits = torch.tensor([X - 1, Y - 1, Z - 1], device=dev)
     for axis in range(3):
         ijk = torch.nonzero(cross[axis])
         step = torch.zeros(3, dtype=torch.long, device=dev)
@@ -75,9 +78,7 @@ def marching_cubes(volume: torch.Tensor, origin, spacing,
                         torch.full_like(v0, 0.5)).clamp(0.0, 1.0)
         base = ijk.to(volume.dtype)
         base[:, axis] = base[:, axis] + t
-        pos = origin + base * spacing
-        owned = (ijk < limits).all(1)
-        verts.append(torch.where(owned[:, None], pos, torch.zeros_like(pos)))
+        verts.append(origin + base * spacing)
     verts = torch.cat(verts)
 
     # faces: table triangles of the surface cubes, cube-major in C-order

@@ -4,7 +4,9 @@ The two kernels in ``csrc/splat.cu`` replace the Pallas kernels
 ``splat_fwd_cells_idx`` and ``splat_bwd_cells_idx``
 (``selfreconcode_tpu/ops/pallas_raster.py:231,287``).  They are compiled with
 ``nvcc`` for ``sm_90a`` into ``build/kernels/<content-hash>/libsrt_splat.so``
-at first use and called through ``ctypes``.
+at first use and called through ``ctypes`` (``ops/_cuda_build.py``).  The
+same two kernels also replace the dense-cell forms ``splat_fwd_cells`` and
+``splat_bwd_cells`` (:176,342), which nothing in either package calls.
 
 Both kernels walk the binned entry list that ``ops/rasterize.py`` builds:
 
@@ -20,21 +22,13 @@ goes to the kernel or raises.  ``launches`` counts kernel launches only.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
 from dataclasses import dataclass
-from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "splat.cu"
-_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC")
+from ._cuda_build import CudaLibrary, check_launch
+
+BIG = 3.0e38   # the dense forms' empty-slot sentinel (col >= BIG / 2)
 
 
 @dataclass
@@ -43,71 +37,27 @@ class LaunchCounts:
     counted)."""
     splat_fwd_launches: int = 0
     splat_bwd_launches: int = 0
+    splat_fwd_cells_launches: int = 0
+    splat_bwd_cells_launches: int = 0
 
     def reset(self):
-        self.splat_fwd_launches = 0
-        self.splat_bwd_launches = 0
+        for name in self.__dataclass_fields__:
+            setattr(self, name, 0)
 
 
 launches = LaunchCounts()
 
-_lib = None
-_lib_lock = threading.Lock()
+
+def _bind(lib):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.srt_splat_fwd.argtypes = [p, p, i, p, p, p, p, i, i, i, i, f, p, p]
+    lib.srt_splat_fwd.restype = ctypes.c_int
+    lib.srt_splat_bwd.argtypes = [p, p, i, p, p, p, p, i, i, i, i, f, p, p,
+                                  p]
+    lib.srt_splat_bwd.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.is_file():
-        return str(cand)
-    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the splat "
-                       "kernels are built from csrc/splat.cu at first use")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes()
-                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_ROOT / digest / "libsrt_splat.so"
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile csrc/splat.cu unless the content-hashed library exists."""
-    out = library_path()
-    if out.is_file():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr, flush=True)
-    os.replace(tmp, out)
-    return out
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.srt_splat_fwd.argtypes = [p, p, i, p, p, p, p, i, i, i, i, f,
-                                          p, p]
-            lib.srt_splat_fwd.restype = ctypes.c_int
-            lib.srt_splat_bwd.argtypes = [p, p, i, p, p, p, p, i, i, i, i, f,
-                                          p, p, p]
-            lib.srt_splat_bwd.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+LIB = CudaLibrary("splat.cu", "libsrt_splat", _bind)
 
 
 def _check_inputs(col, row, entries, cell_ids, starts, counts, cs):
@@ -130,11 +80,6 @@ def _check_inputs(col, row, entries, cell_ids, starts, counts, cs):
         raise ValueError("cell_ids, starts and counts must have one length")
     if not 1 <= cs <= 32:
         raise ValueError(f"cell size {cs} outside [1, 32] (cs*cs threads)")
-
-
-def _check_cuda(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed with cudaError_t {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +127,50 @@ def splat_bwd_plain(col, row, entries, cell_ids, starts, counts, cot_img,
 # Wrappers
 # ---------------------------------------------------------------------------
 
+def _require_cuda(t, what: str):
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+
+
+def _launch_fwd(col, row, entries, cell_ids, starts, counts, cs, ncx, hp, wp,
+                r2_inv):
+    """(acc, launched): with no active cell nothing is launched."""
+    acc = torch.zeros((hp, wp), dtype=torch.float32, device=col.device)
+    if cell_ids.shape[0] == 0:
+        return acc, False
+    err = LIB.load().srt_splat_fwd(
+        col.data_ptr(), row.data_ptr(), col.shape[0], entries.data_ptr(),
+        cell_ids.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+        cell_ids.shape[0], cs, ncx, wp, float(r2_inv), acc.data_ptr(),
+        torch.cuda.current_stream(col.device).cuda_stream)
+    check_launch(err, "splat_fwd")
+    return acc, True
+
+
+def _launch_bwd(col, row, entries, cell_ids, starts, counts, cot_img, cs, ncx,
+                r2_inv):
+    """(g, launched): with no active cell nothing is launched."""
+    g = torch.empty((entries.shape[0], 2), dtype=torch.float32,
+                    device=col.device)
+    if cell_ids.shape[0] == 0:
+        return g, False
+    err = LIB.load().srt_splat_bwd(
+        col.data_ptr(), row.data_ptr(), col.shape[0], entries.data_ptr(),
+        cell_ids.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+        cell_ids.shape[0], cs, ncx, cot_img.shape[1], float(r2_inv),
+        cot_img.data_ptr(), g.data_ptr(),
+        torch.cuda.current_stream(col.device).cuda_stream)
+    check_launch(err, "splat_bwd")
+    return g, True
+
+
+def _check_cot(cot_img, col):
+    if cot_img.device != col.device or cot_img.dtype != torch.float32 \
+            or cot_img.dim() != 2 or not cot_img.is_contiguous():
+        raise ValueError("cot_img must be a contiguous float32 (hp, wp) "
+                         "tensor on col's device")
+
+
 def splat_fwd(col, row, entries, cell_ids, starts, counts, cs: int, ncx: int,
               hp: int, wp: int, r2_inv: float):
     """Forward accumulator image (hp, wp).  CPU -> plain version; CUDA ->
@@ -190,17 +179,10 @@ def splat_fwd(col, row, entries, cell_ids, starts, counts, cs: int, ncx: int,
     if col.device.type == "cpu":
         return splat_fwd_plain(col, row, entries, cell_ids, starts, counts,
                                cs, ncx, hp, wp, r2_inv)
-    if col.device.type != "cuda":
-        raise ValueError(f"splat_fwd: unsupported device {col.device}")
-    lib = _load()
-    acc = torch.zeros((hp, wp), dtype=torch.float32, device=col.device)
-    err = lib.srt_splat_fwd(
-        col.data_ptr(), row.data_ptr(), col.shape[0], entries.data_ptr(),
-        cell_ids.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-        cell_ids.shape[0], cs, ncx, wp, float(r2_inv), acc.data_ptr(),
-        torch.cuda.current_stream(col.device).cuda_stream)
-    _check_cuda(err, "splat_fwd")
-    launches.splat_fwd_launches += 1
+    _require_cuda(col, "splat_fwd")
+    acc, ran = _launch_fwd(col, row, entries, cell_ids, starts, counts, cs,
+                           ncx, hp, wp, r2_inv)
+    launches.splat_fwd_launches += ran
     return acc
 
 
@@ -209,24 +191,101 @@ def splat_bwd(col, row, entries, cell_ids, starts, counts, cot_img, cs: int,
     """Per-entry gradients (M, 2) in sorted-entry order.  CPU -> plain
     version; CUDA -> the kernel (or an exception)."""
     _check_inputs(col, row, entries, cell_ids, starts, counts, cs)
-    if cot_img.device != col.device or cot_img.dtype != torch.float32 \
-            or cot_img.dim() != 2 or not cot_img.is_contiguous():
-        raise ValueError("cot_img must be a contiguous float32 (hp, wp) "
-                         "tensor on col's device")
+    _check_cot(cot_img, col)
     if col.device.type == "cpu":
         return splat_bwd_plain(col, row, entries, cell_ids, starts, counts,
                                cot_img, cs, ncx, r2_inv)
-    if col.device.type != "cuda":
-        raise ValueError(f"splat_bwd: unsupported device {col.device}")
-    lib = _load()
-    g = torch.empty((entries.shape[0], 2), dtype=torch.float32,
-                    device=col.device)
-    err = lib.srt_splat_bwd(
-        col.data_ptr(), row.data_ptr(), col.shape[0], entries.data_ptr(),
-        cell_ids.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-        cell_ids.shape[0], cs, ncx, cot_img.shape[1], float(r2_inv),
-        cot_img.data_ptr(), g.data_ptr(),
-        torch.cuda.current_stream(col.device).cuda_stream)
-    _check_cuda(err, "splat_bwd")
-    launches.splat_bwd_launches += 1
+    _require_cuda(col, "splat_bwd")
+    g, ran = _launch_bwd(col, row, entries, cell_ids, starts, counts, cot_img,
+                         cs, ncx, r2_inv)
+    launches.splat_bwd_launches += ran
     return g
+
+
+# ---------------------------------------------------------------------------
+# Dense-cell forms: replace ``splat_fwd_cells`` / ``splat_bwd_cells``
+# (pallas_raster.py:176,342).  Every cell c of a (C, 2, cap) slot tensor is
+# active with grid index c; its entries are the slots with col < BIG / 2 in
+# slot order.  Same kernels as above, with the image relaid to and from the
+# cell-major (C, cs*cs) layout.
+# ---------------------------------------------------------------------------
+
+def _dense_bins(pts, cs: int, ncx: int):
+    if pts.dtype != torch.float32 or pts.dim() != 3 or pts.shape[1] != 2:
+        raise ValueError(f"pts must be float32 (C, 2, cap), got "
+                         f"{pts.dtype} {tuple(pts.shape)}")
+    C, _, cap = pts.shape
+    col = pts[:, 0].reshape(-1).contiguous()
+    row = pts[:, 1].reshape(-1).contiguous()
+    valid = col < BIG / 2
+    counts = valid.reshape(C, cap).sum(1, dtype=torch.int32)
+    starts = (torch.cumsum(counts, 0, dtype=torch.int32) - counts)
+    entries = torch.nonzero(valid).squeeze(1).to(torch.int32)
+    cell_ids = torch.arange(C, dtype=torch.int32, device=pts.device)
+    ncy = -(-C // ncx)
+    return (col, row, entries, cell_ids, starts, counts), ncy * cs, ncx * cs
+
+
+def _image_to_cells(img, C: int, cs: int, ncx: int):
+    ncy = img.shape[0] // cs
+    return img.reshape(ncy, cs, ncx, cs).permute(0, 2, 1, 3).reshape(
+        ncy * ncx, cs * cs)[:C]
+
+
+def _cells_to_image(cells, cs: int, ncx: int):
+    C = cells.shape[0]
+    ncy = -(-C // ncx)
+    full = cells.new_zeros((ncy * ncx, cs * cs))
+    full[:C] = cells
+    return full.reshape(ncy, ncx, cs, cs).permute(0, 2, 1, 3).reshape(
+        ncy * cs, ncx * cs).contiguous()
+
+
+def _scatter_slots(g_sorted, entries, pts):
+    """Per-entry (M, 2) -> (C, 2, cap), zero on empty slots."""
+    C, _, cap = pts.shape
+    out = g_sorted.new_zeros((C * cap, 2))
+    out[entries.long()] = g_sorted
+    return out.reshape(C, cap, 2).permute(0, 2, 1).contiguous()
+
+
+def splat_fwd_cells_plain(pts, cs: int, ncx: int, r_pix: float):
+    bins, hp, wp = _dense_bins(pts, cs, ncx)
+    acc = splat_fwd_plain(*bins, cs, ncx, hp, wp, 1.0 / float(r_pix * r_pix))
+    return _image_to_cells(acc, pts.shape[0], cs, ncx)
+
+
+def splat_bwd_cells_plain(pts, cot, cs: int, ncx: int, r_pix: float):
+    bins, _, _ = _dense_bins(pts, cs, ncx)
+    g = splat_bwd_plain(*bins, _cells_to_image(cot, cs, ncx), cs, ncx,
+                        1.0 / float(r_pix * r_pix))
+    return _scatter_slots(g, bins[2], pts)
+
+
+def splat_fwd_cells(pts, cs: int, ncx: int, r_pix: float):
+    """pts (C, 2, cap) -> accumulated log1p(-w) (C, cs*cs).  CPU -> plain
+    version; CUDA -> the forward kernel (or an exception)."""
+    if pts.device.type == "cpu":
+        return splat_fwd_cells_plain(pts, cs, ncx, r_pix)
+    _require_cuda(pts, "splat_fwd_cells")
+    bins, hp, wp = _dense_bins(pts, cs, ncx)
+    _check_inputs(*bins, cs)
+    acc, ran = _launch_fwd(*bins, cs, ncx, hp, wp, 1.0 / float(r_pix * r_pix))
+    launches.splat_fwd_cells_launches += ran
+    return _image_to_cells(acc, pts.shape[0], cs, ncx)
+
+
+def splat_bwd_cells(pts, cot, cs: int, ncx: int, r_pix: float):
+    """pts (C, 2, cap), cot (C, cs*cs) -> per-slot (d col, d row)
+    (C, 2, cap), zero on empty slots.  CPU -> plain version; CUDA -> the
+    backward kernel (or an exception)."""
+    if pts.device.type == "cpu":
+        return splat_bwd_cells_plain(pts, cot, cs, ncx, r_pix)
+    _require_cuda(pts, "splat_bwd_cells")
+    bins, _, _ = _dense_bins(pts, cs, ncx)
+    _check_inputs(*bins, cs)
+    cot_img = _cells_to_image(cot, cs, ncx)
+    _check_cot(cot_img, bins[0])
+    g, ran = _launch_bwd(*bins, cot_img, cs, ncx, 1.0 / float(r_pix * r_pix))
+    launches.splat_bwd_cells_launches += ran
+    return _scatter_slots(g, bins[2], pts)

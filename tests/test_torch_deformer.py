@@ -131,3 +131,60 @@ def test_double_backward_through_jacobian(setup):
     close(jg_x, pts.grad)
     for l, layer in enumerate(jg_p):
         close(layer["w"], getattr(tnet, f"lin{l}").weight.grad)
+
+
+def test_posed_plane_stretches_as_in_jax():
+    """Both deformers stretch the same faces ~7x.  The setting is the
+    trainer's: the 800-vertex toy body, the A-pose canonical space
+    (pose type 1, arms 55 degrees down), the full-width translator and a
+    near-zero frame pose like the synthetic scene's.  The template is a
+    1.5 cm grid over the body's front plane (14k vertices).  Where the
+    template leaves the toy body's points, the diffused weights mix the hand
+    (joint 22) with the knee (4).  The frame lifts the arm back up by 55
+    degrees, so those 1.5 cm edges grow to ~15 cm.  The inference template
+    on the card stretches the same way."""
+    res = (33, 57, 17)
+    jsk, _, _ = JSK.build_skinner(JSMPL.toy_smpl_model(), jnp.zeros(10),
+                                  JSMPL.smpl_tmp_apose(1), resolution=res,
+                                  table_dtype=jnp.float32)
+    tsk, _, _ = build_skinner(TSMPL.toy_smpl_model(),
+                              np.zeros(10, np.float32),
+                              TSMPL.smpl_tmp_apose(1), resolution=res)
+    xs, ys = np.arange(-0.8, 0.8001, 0.015), np.arange(-1.2, 0.8001, 0.015)
+    X, Y = np.meshgrid(xs, ys)
+    verts = np.stack([X.ravel(), Y.ravel(), np.zeros(X.size)], 1).astype(
+        np.float32)
+    nx = len(xs)
+    i = (np.arange(len(ys) - 1)[:, None] * nx + np.arange(nx - 1)).ravel()
+    faces = np.concatenate([np.stack([i, i + 1, i + nx], 1),
+                            np.stack([i + 1, i + nx + 1, i + nx], 1)])
+    d = dict(pts=verts, binds=np.zeros(len(verts), np.int32),
+             dcond=np.zeros((1, 128), np.float32),
+             poses=(0.03 * np.random.default_rng(0).standard_normal(
+                 (1, 24, 3))).astype(np.float32),
+             trans=np.array([[0.0, 0.0, 2.5]], np.float32))
+    jnet = JT.TranslatorNet()
+    jp = JT.init_translator_params(jax.random.PRNGKey(2), jnet)
+    sd = params_from_jax({"sdf": [], "render": [],
+                          "trans": jax.tree_util.tree_map(np.asarray, jp)})
+    tnet = TranslatorNet(seed=None)
+    tnet.load_state_dict({k[len("deformer.defs.0."):]: torch.tensor(v)
+                          for k, v in sd.items()})
+    jo, _ = JD.deformer_apply(jp, JD.Deformer(translator=jnet, skinner=jsk),
+                              *_args(d, "jax"), 1.0)
+    with torch.no_grad():
+        to, _ = deformer_apply(tnet, tsk, *_args(d, "torch"), 1.0)
+    close(jo, to)
+
+    def edge_max(v):
+        v = np.asarray(v)
+        a, b, c = v[faces[:, 0]], v[faces[:, 1]], v[faces[:, 2]]
+        return np.stack([np.linalg.norm(a - b, axis=1),
+                         np.linalg.norm(b - c, axis=1),
+                         np.linalg.norm(c - a, axis=1)], 1).max(1)
+
+    e0, ej, et = edge_max(verts), edge_max(jo), edge_max(to.numpy())
+    close(ej, et)
+    assert (ej / e0).max() > 5 and (et / e0).max() > 5
+    widest = verts[faces[np.argmax(et / e0)]].mean(0)
+    assert abs(widest[0]) > 0.6 and -0.7 < widest[1] < -0.5, widest

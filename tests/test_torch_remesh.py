@@ -99,7 +99,14 @@ def check_same_mesh(jvol, jmc, tvol, tmc):
     assert (tmc.verts.shape[0], tmc.faces.shape[0]) == (nv, nf)
     np.testing.assert_array_equal(tmc.faces.numpy(),
                                   np.asarray(jmc.faces)[:nf])
-    err = np.abs(tmc.verts.numpy() - np.asarray(jmc.verts)[:nv]).max(1)
+    # JAX leaves the crossings on +boundary edges at (0, 0, 0); the port
+    # puts them on their edges, which lie on the sweep box's + faces
+    jv, tv = np.asarray(jmc.verts)[:nv], tmc.verts.numpy()
+    ownerless = (jv == 0).all(1)
+    assert ownerless.sum() == tmc.n_boundary
+    on_face = (np.abs(tv[ownerless] - tv.max(0)) <= 1e-5).any(1)
+    assert on_face.all()
+    err = np.abs(tv - jv).max(1)[~ownerless]
     assert (err <= 1e-5).mean() >= 0.995 and err.max() <= 1e-4, err.max()
     assert tmc.n_boundary == int(jmc.n_boundary)
     np.testing.assert_array_equal(tmc.boundary_sides,
@@ -138,3 +145,24 @@ def test_igr_then_remesh_matches(body):
     # the JAX post-IGR SDF, carried across, remeshes identically
     same = port_sdf(jax.tree_util.tree_map(np.asarray, jp))
     check_same_mesh(*remesh_both(jnet, jp, same, b_min, b_max))
+
+
+def test_boundary_crossings_sit_on_their_edges():
+    """A sphere that leaves the grid through its + faces: every crossing,
+    also those on +boundary edges that no cube owns, lies on its grid edge,
+    so no triangle is longer than a cell diagonal (JAX leaves those
+    crossings at the origin)."""
+    n, h = 17, 0.1
+    g = np.arange(n, dtype=np.float32) * h - 1.1           # [-1.1, 0.5]
+    x, y, z = np.meshgrid(g, g, g, indexing="ij")
+    vol = torch.tensor(np.sqrt(x ** 2 + y ** 2 + z ** 2) - 0.9)
+    mc = marching_cubes(vol, [-1.1] * 3, [h] * 3, 0.0)
+    assert mc.n_boundary > 0
+    v = mc.verts
+    assert not (v == 0).all(1).any()
+    assert (v >= -1.1 - 1e-6).all() and (v <= 0.5 + 1e-6).all()
+    tri = v[mc.faces]
+    edge = torch.linalg.norm(tri - tri.roll(1, dims=1), dim=-1)
+    assert float(edge.max()) <= np.sqrt(3) * h + 1e-5
+    np.testing.assert_allclose(torch.linalg.norm(v, dim=1).numpy(), 0.9,
+                               atol=0.02)

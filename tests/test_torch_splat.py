@@ -1,4 +1,6 @@
-"""Parity of the port's splat soft mask with the JAX ``splat_mask``.
+"""Parity of the port's splat soft mask with the JAX ``splat_mask``, and of
+the dense-cell kernel forms with the JAX ``splat_fwd_cells`` /
+``splat_bwd_cells``.
 
 The JAX side runs its Pallas kernels in interpret mode on the CPU; the port
 runs the kernels' plain versions (the wrapper's CPU dispatch).  JAX is given
@@ -6,7 +8,9 @@ a cell_cap at least the measured max occupancy, and the test asserts its
 ``stats[0] == 0`` (nothing dropped): only there do the two agree, because
 the port has no capacity.  Tolerances: mask atol 1e-6; gradients of
 (mask * target).sum() w.r.t. points and camera at 1e-4 * max|g|, since the
-per-pixel and per-point sums run in another order.
+per-pixel and per-point sums run in another order.  Dense forms: the
+accumulator at 1e-5 relative (+1e-5 absolute), the per-slot gradient at
+1e-5 * max|g|, empty slots exactly zero.
 """
 import jax
 import jax.numpy as jnp
@@ -14,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from selfreconcode_tpu.ops import pallas_raster as PR
 from selfreconcode_tpu.ops.rasterize import splat_mask as jsplat
 from selfreconcode_tpu.render.camera import Camera as JCam
 from selfreconcode_tpu_torch.ops import splat_kernels as SK
@@ -138,6 +143,41 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                      r2_inv)
 
 
+def dense_slots(rng, C=32, ncx=8, cs=8, cap=64, r_pix=2.5):
+    """(C, 2, cap) slots around each cell (some reach into the neighbours),
+    ~30% empty (col = BIG), and cell 5 empty altogether."""
+    c = np.arange(C)
+    x0 = (c % ncx * cs)[:, None]
+    y0 = (c // ncx * cs)[:, None]
+    col = x0 + rng.uniform(-r_pix, cs + r_pix, (C, cap))
+    row = y0 + rng.uniform(-r_pix, cs + r_pix, (C, cap))
+    empty = rng.random((C, cap)) < 0.3
+    empty[5] = True
+    col = np.where(empty, PR.BIG, col)
+    return np.stack([col, row], 1).astype(np.float32), ~empty
+
+
+@pytest.mark.parametrize("C,ncx", [(16, 4), (32, 8)])
+def test_dense_cell_forms_match_jax(C, ncx):
+    rng = np.random.default_rng(C)
+    cs, r_pix = 8, 2.5
+    pts, valid = dense_slots(rng, C, ncx, cs, 64, r_pix)
+    acc_j = np.asarray(PR.splat_fwd_cells(jnp.asarray(pts), cs, ncx, r_pix))
+    acc = SK.splat_fwd_cells(torch.tensor(pts), cs, ncx, r_pix)
+    assert acc.shape == (C, cs * cs)
+    np.testing.assert_allclose(acc.numpy(), acc_j, rtol=1e-5, atol=1e-5)
+    assert (acc_j[5] == 0).all() and (acc.numpy()[5] == 0).all()
+    cot = rng.standard_normal((C, cs * cs)).astype(np.float32)
+    g_j = np.asarray(PR.splat_bwd_cells(jnp.asarray(pts), jnp.asarray(cot),
+                                        cs, ncx, r_pix))
+    g = SK.splat_bwd_cells(torch.tensor(pts), torch.tensor(cot), cs, ncx,
+                           r_pix).numpy()
+    assert g.shape == (C, 2, 64)
+    np.testing.assert_allclose(g, g_j, rtol=0, atol=1e-5 * np.abs(g_j).max())
+    assert (g.transpose(0, 2, 1)[~valid] == 0).all()
+    assert np.abs(g).max() > 0
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_the_card():
     if not torch.cuda.is_available():
@@ -156,3 +196,21 @@ def test_kernels_match_plain_on_the_card():
     gp = SK.splat_bwd_plain(*args, cot, 8, b.ncx, r2_inv)
     torch.testing.assert_close(g, gp, rtol=0,
                                atol=1e-4 * float(gp.abs().max()))
+    pts_d, _ = dense_slots(np.random.default_rng(5))
+    pts_d = torch.tensor(pts_d, device="cuda")
+    torch.testing.assert_close(SK.splat_fwd_cells(pts_d, 8, 8, 2.5),
+                               SK.splat_fwd_cells_plain(pts_d, 8, 8, 2.5),
+                               rtol=1e-4, atol=1e-4)
+    cot_d = torch.randn(32, 64, device="cuda")
+    gd = SK.splat_bwd_cells_plain(pts_d, cot_d, 8, 8, 2.5)
+    torch.testing.assert_close(SK.splat_bwd_cells(pts_d, cot_d, 8, 8, 2.5),
+                               gd, rtol=0, atol=1e-4 * float(gd.abs().max()))
+    # no active cell: the wrappers launch nothing and count nothing
+    none = torch.zeros(0, dtype=torch.int32, device="cuda")
+    n0 = (SK.launches.splat_fwd_launches, SK.launches.splat_bwd_launches)
+    acc0 = SK.splat_fwd(col, row, none, none, none, none, 8, b.ncx, b.hp,
+                        b.wp, r2_inv)
+    g0 = SK.splat_bwd(col, row, none, none, none, none, cot, 8, b.ncx, r2_inv)
+    assert (acc0 == 0).all() and g0.shape == (0, 2)
+    assert (SK.launches.splat_fwd_launches,
+            SK.launches.splat_bwd_launches) == n0

@@ -25,35 +25,19 @@ import optax
 import pytest
 import torch
 
-from selfreconcode_tpu.data.dataset import SceneDataset as JScene
-from selfreconcode_tpu.data.dataset import make_synthetic_scene
 from selfreconcode_tpu.engine import trainer as JTR
 from selfreconcode_tpu.models import deformer as JD
-from selfreconcode_tpu.models import render as JR
-from selfreconcode_tpu.models import sdf as JSDF
-from selfreconcode_tpu.models import skinner as JSK
-from selfreconcode_tpu.models import smpl as JSMPL
-from selfreconcode_tpu.models import translator as JT
-from selfreconcode_tpu.ops import marching_cubes as JMC
 from selfreconcode_tpu.ops import sparse_sdf as JSS
-from selfreconcode_tpu.render.camera import ang_threshold, make_camera
 from selfreconcode_tpu.utils.math import dct_null_space
 from selfreconcode_tpu_torch.engine import trainer as TTR
-from selfreconcode_tpu_torch.interop import (bank_from_jax, params_from_jax,
-                                             params_to_jax)
-from selfreconcode_tpu_torch.models.render import RenderNet
-from selfreconcode_tpu_torch.models.sdf import SDFNet
-from selfreconcode_tpu_torch.models.skinner import Skinner
-from selfreconcode_tpu_torch.models.translator import TranslatorNet
+from selfreconcode_tpu_torch.interop import bank_from_jax, params_to_jax
+from test_torch_common import (H, W, _round, jax_scene, port_nets,
+                               port_skinner, port_template)
 
-H = W = 32
 P = 32
 EIK = 512
 RADIUS = 0.15          # 2.4 px: the Pallas (cs = 8) path in JAX
 LR = 1e-3
-SDF_KW = dict(hidden=(64,) * 4, skip_in=(2,), multires=2, feature_size=16)
-TR_KW = dict(cond_size=8, multires=2, hidden=(64, 64))
-RN_KW = dict(feature_size=16, hidden=(64, 64), multires_v=2)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -64,73 +48,20 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _round(x, m):
-    return -(-x // m) * m
-
-
 def jax_setup(root):
-    scene = osp.join(root, "scene")
-    make_synthetic_scene(scene, n_frames=4, H=H, W=W)
-    ds = JScene(scene, conds_lens={"deformer": 8, "renderer": 16},
-                use_native=False)
-    jsk, _, _ = JSK.build_skinner(JSMPL.toy_smpl_model(400),
-                                  jnp.asarray(ds.shape),
-                                  JSMPL.smpl_tmp_apose(1),
-                                  resolution=(17, 29, 9),
-                                  table_dtype=jnp.float32)
-    nets = (JSDF.SDFNet(**SDF_KW), JT.TranslatorNet(**TR_KW),
-            JR.RenderNet(**RN_KW))
-    params = {"sdf": JSDF.init_sdf_params(jax.random.PRNGKey(1), nets[0]),
-              "trans": JT.init_translator_params(jax.random.PRNGKey(2),
-                                                 nets[1]),
-              "render": JR.init_render_params(jax.random.PRNGKey(3), nets[2])}
-    # the template: the JAX remesh of the init SDF, padded like the trainer
-    # swept over a cube that holds the whole init sphere (the toy body's bbox
-    # is thinner than the sphere and would cut its front and back away)
-    res = tuple(tuple(r) for r in JTR._DEFAULT_TEST_RES)
-    b_min, b_max = np.full(3, -0.8, np.float32), np.full(3, 0.8, np.float32)
-    spacing, origin = JSS.grid_world_coords(res[-1], b_min, b_max)
-    vol = JSS.sparse_sdf_grid(
-        lambda p: JSDF.sdf_value_only(params["sdf"], nets[0], p, 1.0), res,
-        b_min, b_max, 0.0, JSS.default_caps(res))
-    # extracted at iso 0.02, not 0: the SDF anchor term is mean |sdf(verts)|,
-    # and on the zero set itself sign(sdf) flips on float32 noise between
-    # the two frameworks, moving the gradient by far more than the tolerance
-    mc = JMC.marching_cubes(vol, origin, spacing, 0.02, 40000, 80000, 20000)
-    nv, nf = int(mc.nv), int(mc.nf)
-    vcap, fcap = _round(nv, 1024), _round(nf, 1024)
-    vv = np.arange(vcap) < nv
-    fv = np.arange(fcap) < nf
-    tmp = JTR.TemplateState(
-        verts=jnp.asarray(np.where(vv[:, None],
-                                   np.asarray(mc.verts)[:vcap], 0.0),
-                          jnp.float32),
-        vert_valid=jnp.asarray(vv),
-        faces=jnp.asarray(np.where(fv[:, None], np.asarray(mc.faces)[:fcap],
-                                   0), jnp.int32),
-        face_valid=jnp.asarray(fv),
-        edges=jnp.zeros((1024, 2), jnp.int32),
-        edge_valid=jnp.zeros((1024,), bool),
-        edge_faces=jnp.zeros((1024, 2), jnp.int32),
-        ef_valid=jnp.zeros((1024,), bool),
-        momentum=jnp.zeros((vcap, 3)))
+    s = jax_scene(root)
+    ds, res, nv = s["ds"], s["res"], s["nv"]
     nw = min(30, ds.frame_num - 1)
-    cfg = JTR.StageStatic(
+    s["cfg"] = JTR.StageStatic(
         name="coarse", N=1, H=H, W=W, sample_pix=P, radius=RADIUS,
-        remesh_intersect=30, vcap=vcap, fcap=fcap, ecap=1024,
+        remesh_intersect=30, vcap=s["vcap"], fcap=s["fcap"], ecap=1024,
         mc_active_cap=20000, resolutions=res,
         sweep_caps=tuple(JSS.default_caps(res)), raster_footprint=10,
         weights=JTR.LossWeights(), eik_tmp=EIK, anchor_sub=0, window=nw,
         splat_cap=_round(nv, 64), splat_cells=256, splat_cap_max=4096,
         has_normals=True)
-    cp = ds.camera_params
-    cam = make_camera(cp["focal_length"], cp["princeple_points"],
-                      cp["cam2world_coord_quat"], cp["world2cam_coord_trans"],
-                      H, W)
-    return dict(ds=ds, jsk=jsk, nets=nets, params=params, tmp=tmp, nv=nv,
-                nf=nf, cfg=cfg, dctnull=dct_null_space(min(10, max(1, nw // 3)),
-                                                       nw),
-                ang=ang_threshold(cam, 0.5))
+    s["dctnull"] = dct_null_space(min(10, max(1, nw // 3)), nw)
+    return s
 
 
 def recording_optimizer():
@@ -156,23 +87,6 @@ def jax_draws(key, cfg, nv, vcap):
         eik_uniform=t(jax.random.uniform(k2b, (S // 6, 3))),
         def_normal=t(jax.random.normal(k3a, (S, 3))),
         anchor_scores=None)
-
-
-def port_nets(params_np):
-    sd = params_from_jax(params_np)
-    nets = TTR.AvatarNets(SDFNet(**SDF_KW, seed=None),
-                          TranslatorNet(**TR_KW, seed=None),
-                          RenderNet(**RN_KW, seed=None))
-    nets.load_state_dict({k: torch.tensor(v) for k, v in sd.items()})
-    return nets
-
-
-def port_skinner(jsk):
-    t = lambda x: torch.tensor(np.asarray(x, np.float32))  # noqa: E731
-    return Skinner(ws=t(jsk.ws), ws_dims=tuple(jsk.ws_dims), b_min=t(jsk.b_min),
-                   b_max=t(jsk.b_max), joints=t(jsk.joints),
-                   init_pose_inv=t(jsk.init_pose_inv),
-                   parents=tuple(jsk.parents))
 
 
 @pytest.fixture(scope="module")
@@ -219,9 +133,7 @@ def step_results(tmp_path_factory):
         window=cfg.window, has_normals=True)
     tstep = TTR.make_train_step(nets, port_skinner(s["jsk"]), tcfg,
                                 s["dctnull"], s["ang"], opt)
-    tmp = TTR.Template(verts=torch.tensor(np.asarray(s["tmp"].verts)[:nv]),
-                       faces=torch.tensor(np.asarray(s["tmp"].faces)[:s["nf"]]),
-                       momentum=torch.zeros(nv, 3))
+    tmp = port_template(s)
     img, mask, nrm = TTR.image_batch({**batch, "normal": gtNs}, "cpu")
     new_tmp, info = tstep(tbank, tmp, img, mask, nrm, torch.tensor(fids),
                           torch.tensor(windows), (1.0, 0.5, 1.0), LR,
