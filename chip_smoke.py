@@ -20,15 +20,29 @@ Phases:
      and read right after: >= 2 launches per frame; errors.txt must parse
      with 2 evaluated frames, each maskE finite and in [0, 1];
   5. splat kernels vs plain on the card at shape A (1080x1080 frame, 134k
-     points on a body-sized shell, radius 0.0041) and shape B (the trained
-     template deformed into frame 0 of the 512x512 scene, radius 0.006),
-     and the dense-cell forms at shape B's bins laid out densely, with
-     median times over 25 runs;
+     points on a body-sized shell, radius 0.0041), shape B (the trained
+     template deformed into frame 0 of the 512x512 scene, radius 0.006) and
+     shape E (the same template at 1080x1080, focal and principal point
+     scaled by 1080/512, radius 0.0041: what the fine stage feeds them), and
+     the dense-cell forms at shape B's bins laid out densely.  Each kernel
+     runs twice and must give the same bits;
   6. mesh kernel vs plain on the card at shape C (phase 4's template, the
      remesh of the trained SDF, deformed into frame 0 at 512x512 as the
      geometry pass deforms it) and shape D (the same at 1080x1080, focal
      and principal point scaled by 1080/512);
   7. the kernels' JSON line, then the device JSON line last.
+
+Each kernel is timed three ways at each shape: ``device_us``, its own time
+on the card (CUDA events around 100 back-to-back launches of the raw ctypes
+entry point with the arguments prepared once, behind a sleep kernel that
+keeps the stream busy); ``wrapper_ms``, one call of the wrapper the main
+path calls, on an idle stream (host checks, allocations, the ctypes call
+and the kernel: what the main path pays per call); ``plain_ms``, the plain
+PyTorch version.  ``bound_us`` is the least time the card could take: the
+larger of the operations these inputs need at the float32 peak and the
+bytes at the memory rate (``bound_by`` says which).  ``library_ms`` is null:
+no single PyTorch call computes a binned splat sum or a z-buffered triangle
+raster.
 
 Imports nothing of JAX.  Exits nonzero when any phase fails or no CUDA card
 is present; there is no CPU fallback.
@@ -55,6 +69,18 @@ FWD_TOL = 1e-4          # accumulator: |err| <= FWD_TOL * max(1, |acc|).  A
                         # a pure absolute 1e-4 is out of reach there.
 MASK_TOL = 1e-6         # mask 1 - exp(acc), absolute
 BWD_TOL = 1e-4          # per-point gradient, relative to max|g|
+PEAK_F32 = 67e12        # H100 SXM float32 FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s (NVIDIA data sheet, 700 W)
+# operations per unit of work, for the bounds
+OPS_PAIR = 5            # a (splat, pixel) test: dc, dr, dc^2 + dr^2, w
+OPS_LOG1P = 20          # forward, per pair with w > 0: clip, log1p, add
+OPS_BWD_HIT = 9         # backward, per pair with 0 < w < 1 - 1e-5: 1 - w,
+                        # reciprocal, three multiplies, two FMAs
+OPS_EXP = 20            # forward, per active-cell pixel: 1 - exp(acc)
+OPS_COT = 2             # backward, per active-cell pixel: -g * (1 - mask)
+OPS_MESH_PAIR = 40      # mesh kernel, per (face entry, cell pixel): four
+                        # edge functions, three divides, the inside test,
+                        # the depth and its compare (csrc/mesh_raster.cu)
 # mesh kernel vs plain: the kernel is built with -fmad=false and rounds like
 # the plain version, and both keep the first minimum in run order, so every
 # output must be identical: hit mask, z, face id and barycentrics
@@ -90,7 +116,10 @@ def shell_points(n, axes, seed):
     return (d * np.asarray(axes)).astype(np.float32)
 
 
-def time_ms(fn, runs=25, warmup=3):
+def wrapper_ms(fn, runs=25, warmup=3):
+    """Median ms of one call of fn on an idle stream, CUDA events around
+    it: the host work of a wrapper (checks, allocations, the ctypes call)
+    plus its kernel, what the main path pays per call."""
     import torch
     for _ in range(warmup):
         fn()
@@ -104,6 +133,81 @@ def time_ms(fn, runs=25, warmup=3):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_us(call, n=100, reps=3):
+    """The kernel's own device time in us: CUDA events around n
+    back-to-back launches of the raw ctypes entry point, with its arguments
+    prepared once (call = (function, arguments, output)), divided by n;
+    the median of reps such runs.  A sleep kernel queued first keeps the
+    stream busy while the host enqueues the launches, so no host time falls
+    between them.  Inputs stay in L2 from launch to launch, as they do on
+    the main path, where the binning has just written them."""
+    import torch
+    fn, args = call[:2]      # call[2] keeps the launch's buffers alive
+    check_err(fn(*args))
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        a.record()
+        errs = [fn(*args) for _ in range(n)]
+        b.record()
+        torch.cuda.synchronize()
+        check_err(max(errs))
+        times.append(a.elapsed_time(b) * 1e3 / n)
+    return statistics.median(times)
+
+
+def check_err(err):
+    if err != 0:
+        raise RuntimeError(f"raw launch returned cudaError_t {err}")
+
+
+def bound_us(ops, nbytes):
+    """(least time in us, what bounds it): the larger of ops at the float32
+    peak and bytes at the memory rate."""
+    t_ops, t_bytes = ops / PEAK_F32 * 1e6, nbytes / PEAK_BYTES * 1e6
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def splat_work(col, row, entries, cell_ids, counts, cs, ncx, r2_inv):
+    """What these splat inputs need: (entry, cell pixel) pairs, the pairs
+    inside each splat's square bbox (what an exact kernel must test), the
+    in-radius pairs of the forward (w > 0) and of the backward
+    (0 < w < 1 - 1e-5)."""
+    import torch
+    P = cs * cs
+    p = entries.long() % col.shape[0]
+    cell = torch.repeat_interleave(cell_ids.long(), counts.long())
+    k = torch.arange(P, device=col.device)
+    dc = col[p][:, None] - ((cell % ncx * cs)[:, None] + k % cs).float()
+    dr = row[p][:, None] - ((cell // ncx * cs)[:, None] + k // cs).float()
+    w = 1.0 - (dc * dc + dr * dr) * r2_inv
+    r = r2_inv ** -0.5
+    return {"cell_pairs": int(p.numel()) * P,
+            "bbox_pairs": int(((dc.abs() <= r) & (dr.abs() <= r)).sum()),
+            "fwd_hits": int((w > 0).sum()),
+            "bwd_hits": int(((w > 0) & (w < 1.0 - 1e-5)).sum())}
+
+
+def splat_bounds(work, n_pts, M, A, P, H, W):
+    """Bounds of the forward and the backward at one shape.  Forward: reads
+    the points, entries, entry cells and the three per-cell arrays, writes
+    the (H, W) mask, and forms 1 - exp(acc) on every active-cell pixel.
+    Backward: reads the points, entries, entry cells, the mask's gradient
+    and the mask, forms the cotangent on every active-cell pixel, and
+    writes a gradient pair for each of the 4 * n_pts entry slots."""
+    ins = 8 * n_pts + 8 * M
+    fwd = bound_us(OPS_PAIR * work["bbox_pairs"]
+                   + OPS_LOG1P * work["fwd_hits"] + OPS_EXP * A * P,
+                   ins + 12 * A + 4 * H * W)
+    bwd = bound_us(OPS_PAIR * work["bbox_pairs"]
+                   + OPS_BWD_HIT * work["bwd_hits"] + OPS_COT * A * P,
+                   ins + 8 * H * W + 32 * n_pts)
+    return fwd, bwd
 
 
 def compare_kernels(label, cam, pts, radius, seed):
@@ -123,43 +227,50 @@ def compare_kernels(label, cam, pts, radius, seed):
         b = splat_bins(col, row, s[:, 2], valid, r_pix, H, W,
                        splat_cell_size(r_pix, 9))
         r2_inv = 1.0 / float(r_pix * r_pix)
-        args = (col, row, b.entries, b.cell_ids, b.starts, b.counts)
+        n = col.shape[0]
+        fargs = (col, row, b.entries, b.ecell, b.cell_ids, b.starts,
+                 b.counts, b.cs, b.ncx, H, W, r2_inv)
         gen = torch.Generator(device=pts.device).manual_seed(seed)
-        cot = torch.randn((b.hp, b.wp), generator=gen, device=pts.device)
+        g_img = torch.randn((H, W), generator=gen, device=pts.device)
 
-        acc_k = SK.splat_fwd(*args, b.cs, b.ncx, b.hp, b.wp, r2_inv)
-        acc_p = SK.splat_fwd_plain(*args, b.cs, b.ncx, b.hp, b.wp, r2_inv)
-        g_k = SK.splat_bwd(*args, cot, b.cs, b.ncx, r2_inv)
-        g_p = SK.splat_bwd_plain(*args, cot, b.cs, b.ncx, r2_inv)
+        mask_k = SK.splat_fwd(*fargs)
+        mask_p = SK.splat_fwd_plain(*fargs)
+        acc_k = SK.splat_fwd(*fargs, to_mask=False)
+        acc_p = SK.splat_fwd_plain(*fargs, to_mask=False)
+        bargs = (col, row, b.entries, b.ecell, g_img, mask_k, b.cs, b.ncx,
+                 r2_inv, 4 * n)
+        g_k = SK.splat_bwd(*bargs)
+        g_p = SK.splat_bwd_plain(*bargs)
+        same = (torch.equal(mask_k, SK.splat_fwd(*fargs)),
+                torch.equal(g_k, SK.splat_bwd(*bargs)))
         torch.cuda.synchronize()
-
-        def per_point(g):
-            out = torch.zeros((4 * col.shape[0], 2), device=g.device)
-            out[b.entries.long()] = g
-            return out.reshape(4, -1, 2).sum(0)
 
         fwd_err = float(((acc_k - acc_p).abs()
                          / acc_p.abs().clamp_min(1.0)).max())
-        mask_err = float((torch.exp(acc_k) - torch.exp(acc_p)).abs().max())
-        gk, gp = per_point(g_k), per_point(g_p)
+        mask_err = float((mask_k - mask_p).abs().max())
+        gk, gp = (g.reshape(4, n, 2).sum(0) for g in (g_k, g_p))
         gmax = float(gp.abs().max())
         bwd_err = float((gk - gp).abs().max())
+        work = splat_work(col, row, b.entries, b.cell_ids, b.counts, b.cs,
+                          b.ncx, r2_inv)
+        (fb, fby), (bb, bby) = splat_bounds(
+            work, n, b.entries.numel(), b.cell_ids.numel(), b.cs * b.cs, H, W)
         out = {
             "shape": label, "n_pts": int(pts.shape[0]),
             "entries": int(b.entries.numel()),
             "active_cells": int(b.cell_ids.numel()),
-            "max_occupancy": int(b.counts.max()),
+            "max_occupancy": int(b.counts.max()), **work,
             "fwd_max_err": fwd_err, "mask_max_abs_err": mask_err,
             "bwd_max_abs_err": bwd_err,
-            "bwd_max_abs_g": gmax,
-            "fwd_ms": time_ms(lambda: SK.splat_fwd(
-                *args, b.cs, b.ncx, b.hp, b.wp, r2_inv)),
-            "fwd_plain_ms": time_ms(lambda: SK.splat_fwd_plain(
-                *args, b.cs, b.ncx, b.hp, b.wp, r2_inv)),
-            "bwd_ms": time_ms(lambda: SK.splat_bwd(
-                *args, cot, b.cs, b.ncx, r2_inv)),
-            "bwd_plain_ms": time_ms(lambda: SK.splat_bwd_plain(
-                *args, cot, b.cs, b.ncx, r2_inv)),
+            "bwd_max_abs_g": gmax, "bit_identical": same,
+            "fwd_device_us": device_us(SK.fwd_call(*fargs)),
+            "fwd_wrapper_ms": wrapper_ms(lambda: SK.fwd(*fargs)),
+            "fwd_plain_ms": wrapper_ms(lambda: SK.splat_fwd_plain(*fargs)),
+            "fwd_bound_us": fb, "fwd_bound_by": fby,
+            "bwd_device_us": device_us(SK.bwd_call(*bargs)),
+            "bwd_wrapper_ms": wrapper_ms(lambda: SK.bwd(*bargs)),
+            "bwd_plain_ms": wrapper_ms(lambda: SK.splat_bwd_plain(*bargs)),
+            "bwd_bound_us": bb, "bwd_bound_by": bby,
         }
     print(f"  {label}: {json.dumps(out)}", flush=True)
     if not (fwd_err <= FWD_TOL and mask_err <= MASK_TOL):
@@ -169,6 +280,9 @@ def compare_kernels(label, cam, pts, radius, seed):
     if not bwd_err <= BWD_TOL * gmax:
         raise AssertionError(f"{label}: backward kernel disagrees with the "
                              f"plain version: {bwd_err} > {BWD_TOL} * {gmax}")
+    if not all(same):
+        raise AssertionError(f"{label}: two launches differ (fwd, bwd "
+                             f"identical: {same})")
     return out
 
 
@@ -202,6 +316,9 @@ def compare_dense(label, cam, pts, radius, seed):
         gen = torch.Generator(device=pts.device).manual_seed(seed)
         cot = torch.randn((C, b.cs * b.cs), generator=gen, device=pts.device)
         args = (b.cs, b.ncx, r_pix)
+        r2_inv = 1.0 / float(r_pix * r_pix)
+        bins, hp, wp = SK.dense_bins(dense, b.cs, b.ncx)
+        cot_img = SK.cells_to_image(cot, b.cs, b.ncx)
         acc_k = SK.splat_fwd_cells(dense, *args)
         acc_p = SK.splat_fwd_cells_plain(dense, *args)
         g_k = SK.splat_bwd_cells(dense, cot, *args)
@@ -212,17 +329,38 @@ def compare_dense(label, cam, pts, radius, seed):
         fwd_abs = float((acc_k - acc_p).abs().max())
         gmax = float(g_p.abs().max())
         bwd_err = float((g_k - g_p).abs().max())
+        same = (torch.equal(acc_k, SK.splat_fwd_cells(dense, *args)),
+                torch.equal(g_k, SK.splat_bwd_cells(dense, cot, *args)))
+        col_d, row_d, ent_d, _, cells_d, _, counts_d = bins
+        work = splat_work(col_d, row_d, ent_d, cells_d, counts_d, b.cs, b.ncx,
+                          r2_inv)
+        P = b.cs * b.cs
+        fb, fby = bound_us(OPS_PAIR * work["bbox_pairs"]
+                           + OPS_LOG1P * work["fwd_hits"],
+                           8 * C * cap + 4 * C * P)
+        bb, bby = bound_us(OPS_PAIR * work["bbox_pairs"]
+                           + OPS_BWD_HIT * work["bwd_hits"],
+                           8 * C * cap + 4 * C * P + 8 * C * cap)
         out = {
             "shape": label, "cells": C, "cap": cap,
-            "filled_slots": int(b.entries.numel()),
+            "filled_slots": int(b.entries.numel()), **work,
             "fwd_max_err": fwd_err, "fwd_max_abs_err": fwd_abs,
             "bwd_max_abs_err": bwd_err, "bwd_max_abs_g": gmax,
-            "fwd_ms": time_ms(lambda: SK.splat_fwd_cells(dense, *args)),
-            "fwd_plain_ms": time_ms(
+            "bit_identical": same,
+            "fwd_device_us": device_us(SK.fwd_call(
+                *bins, b.cs, b.ncx, hp, wp, r2_inv, to_mask=False)),
+            "fwd_wrapper_ms": wrapper_ms(
+                lambda: SK.splat_fwd_cells(dense, *args)),
+            "fwd_plain_ms": wrapper_ms(
                 lambda: SK.splat_fwd_cells_plain(dense, *args)),
-            "bwd_ms": time_ms(lambda: SK.splat_bwd_cells(dense, cot, *args)),
-            "bwd_plain_ms": time_ms(
+            "fwd_bound_us": fb, "fwd_bound_by": fby,
+            "bwd_device_us": device_us(SK.bwd_call(
+                *bins[:4], cot_img, None, b.cs, b.ncx, r2_inv, C * cap)),
+            "bwd_wrapper_ms": wrapper_ms(
+                lambda: SK.splat_bwd_cells(dense, cot, *args)),
+            "bwd_plain_ms": wrapper_ms(
                 lambda: SK.splat_bwd_cells_plain(dense, cot, *args)),
+            "bwd_bound_us": bb, "bwd_bound_by": bby,
         }
     print(f"  {label}: {json.dumps(out)}", flush=True)
     if not fwd_err <= FWD_TOL:
@@ -231,7 +369,36 @@ def compare_dense(label, cam, pts, radius, seed):
     if not bwd_err <= BWD_TOL * gmax:
         raise AssertionError(f"{label}: dense backward disagrees with the "
                              f"plain version: {bwd_err} > {BWD_TOL} * {gmax}")
+    if not all(same):
+        raise AssertionError(f"{label}: two launches differ (fwd, bwd "
+                             f"identical: {same})")
     return out
+
+
+def timings(res, prefix=""):
+    """One shape's numbers for the kernels line."""
+    return {key: res[prefix + key] for key in
+            ("device_us", "wrapper_ms", "plain_ms", "bound_us", "bound_by")}
+
+
+def kernel_row(name, source, line, launches, max_abs_err, shapes, head,
+               note=None):
+    """A kernel's entry in the kernels line: the contract's keys at the
+    shape the main path meets most (head), and every shape's numbers.  ms
+    is the kernel's own device time; wrapper_ms adds the wrapper's host
+    work on an idle stream."""
+    h = shapes[head]
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": f"selfreconcode_tpu/ops/pallas_raster.py:{line}",
+           "launches": launches, "max_abs_err": max_abs_err,
+           "ms": h["device_us"] / 1e3, "plain_ms": h["plain_ms"],
+           "bound_ms": h["bound_us"] / 1e3, "bound_by": h["bound_by"],
+           "library_ms": None, "device_us": h["device_us"],
+           "wrapper_ms": h["wrapper_ms"], "bound_us": h["bound_us"],
+           "at": head, "shapes": shapes}
+    if note:
+        row["note"] = note
+    return row
 
 
 def compare_mesh(label, cam, verts, faces):
@@ -256,6 +423,11 @@ def compare_mesh(label, cam, verts, faces):
         r = rec[torch.unique(b.entries.long() % rec.shape[0])]
         xs, ys = r[:, 0:6:2], r[:, 1:6:2]
         ext = torch.maximum(xs.amax(1) - xs.amin(1), ys.amax(1) - ys.amin(1))
+        M, A = b.entries.numel(), b.cell_ids.numel()
+        pairs = M * b.cs * b.cs
+        bnd, bnd_by = bound_us(OPS_MESH_PAIR * pairs,
+                               36 * rec.shape[0] + 4 * M + 12 * A
+                               + 20 * cam.H * cam.W)
         out = {
             "shape": label, "faces": int(faces.shape[0]), "cell_px": b.cs,
             "max_face_px": float(ext.max()),
@@ -266,8 +438,11 @@ def compare_mesh(label, cam, verts, faces):
             "hit_mismatch": int((hk != hp).sum()),
             "z_max_abs_err": float(dz[both].max()),
             "face_disagree": int(diff.sum()), "bary_max_abs_err": bary_err,
-            "ms": time_ms(lambda: MK.mesh_fragments(*args)),
-            "plain_ms": time_ms(lambda: MK.mesh_fragments_plain(*args)),
+            "pairs": pairs,
+            "device_us": device_us(MK.raster_call(*args)),
+            "wrapper_ms": wrapper_ms(lambda: MK.mesh_fragments(*args)),
+            "plain_ms": wrapper_ms(lambda: MK.mesh_fragments_plain(*args)),
+            "bound_us": bnd, "bound_by": bnd_by,
         }
     print(f"  {label}: {json.dumps(out)}", flush=True)
     if (out["hit_mismatch"] or out["face_disagree"] or out["z_max_abs_err"]
@@ -413,9 +588,13 @@ def profile_step(trainer):
     # kernel events only: an op's row repeats its kernels' device time
     busy_ms = sum(e.self_device_time_total for e in avg
                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    splat_ms = sum(e.self_device_time_total for e in avg
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "splat" in e.key) / 1e3
     print(f"  profiled step: wall {wall * 1e3:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms ({100 * busy_ms / (wall * 1e3):.1f}%)",
-          flush=True)
+          f"{busy_ms:.3f} ms ({100 * busy_ms / (wall * 1e3):.1f}%), splat "
+          f"kernels {splat_ms:.3f} ms ({100 * splat_ms / busy_ms:.2f}% of "
+          f"device time)", flush=True)
     print(avg.table(sort_by="self_device_time_total", row_limit=40),
           flush=True)
 
@@ -471,6 +650,12 @@ def main(argv=None):
                             0.0041, 1)
     label_b = f"B 512x512 {pts_b.shape[0]} pts r=0.006"
     res_b = compare_kernels(label_b, cam_b, pts_b, 0.006, 2)
+    # E: what the fine stage feeds the kernels, B's template at 1080^2
+    k = 1080 / cam_b.W
+    cam_e = Camera(focal=cam_b.focal * k, principal=cam_b.principal * k,
+                   R=cam_b.R, T=cam_b.T, H=1080, W=1080)
+    res_e = compare_kernels(f"E 1080x1080 {pts_b.shape[0]} pts r=0.0041",
+                            cam_e, pts_b, 0.0041, 4)
     res_bd = compare_dense(label_b + " dense", cam_b, pts_b, 0.006, 3)
 
     phase(6, f"mesh kernel vs plain on the card ({card})")
@@ -484,37 +669,28 @@ def main(argv=None):
 
     splat_src = "selfreconcode_tpu_torch/csrc/splat.cu"
     dense_note = "no caller in either package; launched by chip_smoke.py only"
+    splat = {"A": res_a, "B": res_b, "E": res_e}
     kernels = [
-        {"name": "mesh_raster", "route": "cuda",
-         "source": "selfreconcode_tpu_torch/csrc/mesh_raster.cu",
-         "replaces": "selfreconcode_tpu/ops/pallas_raster.py:116",
-         "launches": launched["mesh_raster"],
-         "max_abs_err": max(res_c["z_max_abs_err"], res_d["z_max_abs_err"],
-                            res_c["bary_max_abs_err"],
-                            res_d["bary_max_abs_err"]),
-         "ms": res_c["ms"], "plain_ms": res_c["plain_ms"]},
-        {"name": "splat_fwd_cells", "route": "cuda", "source": splat_src,
-         "replaces": "selfreconcode_tpu/ops/pallas_raster.py:176",
-         "launches": launched["splat_fwd_cells"], "note": dense_note,
-         "max_abs_err": res_bd["fwd_max_abs_err"],
-         "ms": res_bd["fwd_ms"], "plain_ms": res_bd["fwd_plain_ms"]},
-        {"name": "splat_fwd", "route": "cuda", "source": splat_src,
-         "replaces": "selfreconcode_tpu/ops/pallas_raster.py:231",
-         "launches": launched["splat_fwd"],
-         "max_abs_err": max(res_a["mask_max_abs_err"],
-                            res_b["mask_max_abs_err"]),
-         "ms": res_b["fwd_ms"], "plain_ms": res_b["fwd_plain_ms"]},
-        {"name": "splat_bwd", "route": "cuda", "source": splat_src,
-         "replaces": "selfreconcode_tpu/ops/pallas_raster.py:287",
-         "launches": launched["splat_bwd"],
-         "max_abs_err": max(res_a["bwd_max_abs_err"],
-                            res_b["bwd_max_abs_err"]),
-         "ms": res_b["bwd_ms"], "plain_ms": res_b["bwd_plain_ms"]},
-        {"name": "splat_bwd_cells", "route": "cuda", "source": splat_src,
-         "replaces": "selfreconcode_tpu/ops/pallas_raster.py:342",
-         "launches": launched["splat_bwd_cells"], "note": dense_note,
-         "max_abs_err": res_bd["bwd_max_abs_err"],
-         "ms": res_bd["bwd_ms"], "plain_ms": res_bd["bwd_plain_ms"]},
+        kernel_row("mesh_raster",
+                   "selfreconcode_tpu_torch/csrc/mesh_raster.cu", 116,
+                   launched["mesh_raster"],
+                   max(r[k] for r in (res_c, res_d)
+                       for k in ("z_max_abs_err", "bary_max_abs_err")),
+                   {"C": timings(res_c), "D": timings(res_d)}, "D"),
+        kernel_row("splat_fwd_cells", splat_src, 176,
+                   launched["splat_fwd_cells"], res_bd["fwd_max_abs_err"],
+                   {"B-dense": timings(res_bd, "fwd_")}, "B-dense",
+                   note=dense_note),
+        kernel_row("splat_fwd", splat_src, 231, launched["splat_fwd"],
+                   max(r["mask_max_abs_err"] for r in splat.values()),
+                   {n: timings(r, "fwd_") for n, r in splat.items()}, "E"),
+        kernel_row("splat_bwd", splat_src, 287, launched["splat_bwd"],
+                   max(r["bwd_max_abs_err"] for r in splat.values()),
+                   {n: timings(r, "bwd_") for n, r in splat.items()}, "E"),
+        kernel_row("splat_bwd_cells", splat_src, 342,
+                   launched["splat_bwd_cells"], res_bd["bwd_max_abs_err"],
+                   {"B-dense": timings(res_bd, "bwd_")}, "B-dense",
+                   note=dense_note),
     ]
     phase(7, "results")
     print(json.dumps({"kernels": kernels}), flush=True)

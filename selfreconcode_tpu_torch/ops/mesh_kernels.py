@@ -139,6 +139,19 @@ def mesh_fragments_plain(rec, entries, cell_ids, starts, counts, cs: int,
     return zbuf, face, bary
 
 
+def raster_call(rec, entries, cell_ids, starts, counts, cs: int, ncx: int,
+                H: int, W: int):
+    """One launch as (ctypes function, its arguments, the filled outputs
+    (zbuf, face, bary)): the kernel alone, with the arguments prepared
+    once."""
+    zbuf, face, bary = _fill(H, W, rec.device)
+    return LIB.load().srt_mesh_raster, (
+        rec.data_ptr(), rec.shape[0], entries.data_ptr(), cell_ids.data_ptr(),
+        starts.data_ptr(), counts.data_ptr(), cell_ids.shape[0], cs, ncx, H,
+        W, zbuf.data_ptr(), face.data_ptr(), bary.data_ptr(),
+        torch.cuda.current_stream(rec.device).cuda_stream), (zbuf, face, bary)
+
+
 def mesh_fragments(rec, entries, cell_ids, starts, counts, cs: int, ncx: int,
                    H: int, W: int):
     """(zbuf, face, bary) images.  CPU -> plain version; CUDA -> the kernel
@@ -149,14 +162,10 @@ def mesh_fragments(rec, entries, cell_ids, starts, counts, cs: int, ncx: int,
                                     cs, ncx, H, W)
     if rec.device.type != "cuda":
         raise ValueError(f"mesh_fragments: unsupported device {rec.device}")
-    zbuf, face, bary = _fill(H, W, rec.device)
     if cell_ids.shape[0] == 0:     # no active cell: nothing to launch
-        return zbuf, face, bary
-    err = LIB.load().srt_mesh_raster(
-        rec.data_ptr(), rec.shape[0], entries.data_ptr(), cell_ids.data_ptr(),
-        starts.data_ptr(), counts.data_ptr(), cell_ids.shape[0], cs, ncx, H,
-        W, zbuf.data_ptr(), face.data_ptr(), bary.data_ptr(),
-        torch.cuda.current_stream(rec.device).cuda_stream)
-    check_launch(err, "mesh_fragments")
+        return _fill(H, W, rec.device)
+    fn, args, out = raster_call(rec, entries, cell_ids, starts, counts, cs,
+                                ncx, H, W)
+    check_launch(fn(*args), "mesh_fragments")
     launches.mesh_raster_launches += 1
-    return zbuf, face, bary
+    return out

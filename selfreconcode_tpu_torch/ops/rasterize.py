@@ -6,10 +6,10 @@ With unit features, alpha-compositing the splats that cover a pixel equals
 is 1 - exp(sum_k log1p(-w_k)).  Splats are binned into cs x cs image cells
 (a splat's bbox is at most one cell wide, so it touches at most 2x2 cells);
 the forward kernel sums each active cell's whole candidate run per pixel and
-the backward kernel returns per-entry (d col, d row), which torch reduces
-per point in a fixed order.  There is no candidate capacity: the port drops
-no splat, so it equals the JAX mask wherever the JAX binning drops nothing
-(its ``stats[0] == 0``).
+writes the mask, and the backward kernel writes each entry's (d col, d row)
+at its entry id, whose <= 4 slots per point torch sums in a fixed order.
+There is no candidate capacity: the port drops no splat, so it equals the
+JAX mask wherever the JAX binning drops nothing (its ``stats[0] == 0``).
 
 Mesh fragments (torch port of ``rasterize_mesh``): the nearest face per
 pixel with its perspective-correct barycentrics and depth, non-
@@ -32,6 +32,7 @@ from . import splat_kernels as SK
 
 class CellBins(NamedTuple):
     entries: torch.Tensor    # (M,) int32 valid entries sorted by cell
+    ecell: torch.Tensor      # (M,) int32 each sorted entry's cell
     cell_ids: torch.Tensor   # (A,) int32 active cells, ascending
     starts: torch.Tensor     # (A,) int32 run starts into `entries`
     counts: torch.Tensor     # (A,) int32 run lengths
@@ -60,7 +61,8 @@ def cell_bins(bb_min_x, bb_min_y, bb_max_x, bb_max_y, ok, H: int, W: int,
     cell_ids = torch.nonzero(per_cell).squeeze(1)
     counts = per_cell[cell_ids]
     starts = torch.cumsum(counts, 0) - counts
-    return CellBins(ids[order].to(torch.int32), cell_ids.to(torch.int32),
+    return CellBins(ids[order].to(torch.int32),
+                    cells[order].to(torch.int32), cell_ids.to(torch.int32),
                     starts.to(torch.int32), counts.to(torch.int32),
                     cs, ncx, hp, wp)
 
@@ -76,45 +78,43 @@ def splat_bins(col, row, z, point_valid, r_pix: float, H: int, W: int,
 
 
 class _SplatMask(torch.autograd.Function):
-    """mask (H, W) from screen (col, row); gradients go to col/row only."""
+    """mask (H, W) from screen (col, row); gradients go to col/row only.
+    The inputs are checked once here (the bins are built here); SK.fwd and
+    SK.bwd take them unchecked."""
 
     @staticmethod
     def forward(ctx, col, row, z, point_valid, r_pix: float, H: int, W: int,
                 cs: int):
         with torch.no_grad():
+            col, row = col.contiguous(), row.contiguous()
+            SK.check_points(col, row)
             bins = splat_bins(col, row, z, point_valid, r_pix, H, W, cs)
             r2_inv = 1.0 / float(r_pix * r_pix)
-            acc = SK.splat_fwd(col.contiguous(), row.contiguous(),
-                               bins.entries, bins.cell_ids, bins.starts,
-                               bins.counts, cs, bins.ncx, bins.hp, bins.wp,
-                               r2_inv)
-            mask = 1.0 - torch.exp(acc[:H, :W])
+            mask, ran = SK.fwd(col, row, bins.entries, bins.ecell,
+                               bins.cell_ids, bins.starts, bins.counts, cs,
+                               bins.ncx, H, W, r2_inv)
+            SK.launches.splat_fwd_launches += ran
             occ = bins.counts.max() if bins.counts.numel() else \
                 torch.zeros((), dtype=torch.int32, device=col.device)
             stats = torch.stack([occ.to(torch.int64),
-                                 torch.tensor(bins.cell_ids.numel(),
-                                              device=col.device)])
-        ctx.save_for_backward(col, row, mask, bins.entries, bins.cell_ids,
-                              bins.starts, bins.counts)
-        ctx.geom = (cs, bins.ncx, bins.hp, bins.wp, r2_inv)
+                                 torch.full((), bins.cell_ids.numel(),
+                                            dtype=torch.int64,
+                                            device=col.device)])
+        ctx.save_for_backward(col, row, mask, bins.entries, bins.ecell)
+        ctx.geom = (cs, bins.ncx, r2_inv)
         ctx.mark_non_differentiable(stats)
         return mask, stats
 
     @staticmethod
     def backward(ctx, g, _g_stats):
-        col, row, mask, entries, cell_ids, starts, counts = ctx.saved_tensors
-        cs, ncx, hp, wp, r2_inv = ctx.geom
-        H, W = mask.shape
-        cot = torch.zeros((hp, wp), dtype=torch.float32, device=col.device)
-        cot[:H, :W] = -g * (1.0 - mask)
-        g_sorted = SK.splat_bwd(col.contiguous(), row.contiguous(), entries,
-                                cell_ids, starts, counts, cot, cs, ncx,
-                                r2_inv)
+        col, row, mask, entries, ecell = ctx.saved_tensors
+        cs, ncx, r2_inv = ctx.geom
         n = col.shape[0]
-        g_entry = torch.zeros((4 * n, 2), dtype=g_sorted.dtype,
-                              device=col.device)
-        g_entry[entries.long()] = g_sorted
-        g_pts = g_entry.reshape(4, n, 2).sum(0)
+        g_slots, ran = SK.bwd(col, row, entries, ecell,
+                              g.to(torch.float32).contiguous(), mask, cs,
+                              ncx, r2_inv, 4 * n)
+        SK.launches.splat_bwd_launches += ran
+        g_pts = g_slots.reshape(4, n, 2).sum(0)
         return g_pts[:, 0], g_pts[:, 1], None, None, None, None, None, None
 
 

@@ -11,6 +11,12 @@ the port has no capacity.  Tolerances: mask atol 1e-6; gradients of
 per-pixel and per-point sums run in another order.  Dense forms: the
 accumulator at 1e-5 relative (+1e-5 absolute), the per-slot gradient at
 1e-5 * max|g|, empty slots exactly zero.
+
+The plain versions follow the kernels' structure: the sorted entry list
+cut into ``SK.CHUNK``-entry chunks (the "chunks" cloud has a cell of more
+than two chunks and runs that cross chunk edges), the mask formed inside
+the forward, the cotangent -g * (1 - mask) inside the backward, and each
+entry's gradient written at its entry id.
 """
 import jax
 import jax.numpy as jnp
@@ -72,8 +78,19 @@ def offscreen_cloud(rng):
     return unproject(c[:, 0], c[:, 1], z), np.ones(n, bool), 2.0
 
 
+def chunk_cloud(rng):
+    # one 8x8 cell with ~150 entries (more than two chunks of SK.CHUNK) and
+    # sparse neighbours of 5-30 entries, so that runs cross chunk edges
+    n_big, n_small = 150, 120
+    big = 8 + 2.5 + 3 * rng.random((n_big, 2))
+    small = rng.uniform(2, 30, (n_small, 2))
+    c = np.concatenate([big, small])
+    return unproject(c[:, 0], c[:, 1], np.full(len(c), 2.5)), \
+        np.ones(len(c), bool), 2.0
+
+
 CASES = {"dense": dense_cloud, "border": border_cloud,
-         "offscreen": offscreen_cloud}
+         "offscreen": offscreen_cloud, "chunks": chunk_cloud}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -93,6 +110,12 @@ def test_splat_mask_and_grads_match_jax(case):
     occupancy = int(stats[0])
     if case == "dense":
         assert occupancy >= 300
+    if case == "chunks":
+        _, _, b = _bins_for(pts, r_pix, "cpu", valid)
+        assert occupancy > 2 * SK.CHUNK
+        ends = b.starts + b.counts - 1
+        assert ((b.starts // SK.CHUNK != ends // SK.CHUNK)
+                & (b.starts % SK.CHUNK != 0)).any()
 
     def jloss(p, f, pr, t):
         jc = JCam(f, pr, jnp.asarray(R), t, H, W)
@@ -115,32 +138,96 @@ def test_splat_mask_and_grads_match_jax(case):
                                    atol=1e-4 * np.abs(ref).max())
 
 
-def _bins_for(pts, r_pix, device):
+def _bins_for(pts, r_pix, device, valid=None):
     cam = Camera(*(torch.tensor(a, device=device) for a in
                    (FOCAL, PRINC, R, T)), H, W)
     s = transform_points_screen(cam, torch.tensor(pts, device=device))
     col, row = s[:, 0].contiguous(), s[:, 1].contiguous()
-    ok = torch.ones(len(pts), dtype=torch.bool, device=device)
+    ok = torch.ones(len(pts), dtype=torch.bool, device=device) \
+        if valid is None else torch.tensor(valid, device=device)
     return col, row, splat_bins(col, row, s[:, 2], ok, r_pix, H, W, 8)
+
+
+def _fwd_args(col, row, b, r_pix):
+    return (col, row, b.entries, b.ecell, b.cell_ids, b.starts, b.counts, 8,
+            b.ncx, H, W, 1.0 / (r_pix * r_pix))
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     pts, _, r_pix = dense_cloud(np.random.default_rng(3))
     col, row, b = _bins_for(pts, r_pix, "cpu")
-    args = (col, row, b.entries, b.cell_ids, b.starts, b.counts)
-    r2_inv = 1.0 / (r_pix * r_pix)
+    args = _fwd_args(col, row, b, r_pix)
     before = (SK.launches.splat_fwd_launches, SK.launches.splat_bwd_launches)
-    acc = SK.splat_fwd(*args, 8, b.ncx, b.hp, b.wp, r2_inv)
-    torch.testing.assert_close(
-        acc, SK.splat_fwd_plain(*args, 8, b.ncx, b.hp, b.wp, r2_inv))
-    cot = torch.randn(b.hp, b.wp)
-    g = SK.splat_bwd(*args, cot, 8, b.ncx, r2_inv)
-    assert g.shape == (b.entries.numel(), 2)
+    mask = SK.splat_fwd(*args)
+    torch.testing.assert_close(mask, SK.splat_fwd_plain(*args))
+    g_img = torch.randn(H, W)
+    g = SK.splat_bwd(col, row, b.entries, b.ecell, g_img, mask, 8, b.ncx,
+                     args[-1], 4 * col.shape[0])
+    assert g.shape == (4 * col.shape[0], 2)
     assert (SK.launches.splat_fwd_launches,
             SK.launches.splat_bwd_launches) == before
     with pytest.raises(TypeError):
-        SK.splat_fwd(col.double(), row, *args[2:], 8, b.ncx, b.hp, b.wp,
-                     r2_inv)
+        SK.splat_fwd(col.double(), row, *args[2:])
+
+
+def test_decode_takes_both_entry_layouts():
+    """Entry ids k * n + p of the binning and the dense slot ids (k = 0)
+    decode to their point without a modulo."""
+    pts, _, r_pix = border_cloud(np.random.default_rng(6))
+    col, _, b = _bins_for(pts, r_pix, "cpu")
+    n = col.shape[0]
+    assert int(b.entries.max()) >= 3 * n        # all four corners occur
+    assert torch.equal(SK.decode(b.entries, n), b.entries.long() % n)
+    slots = torch.arange(5 * 64, dtype=torch.int32)
+    assert torch.equal(SK.decode(slots, 5 * 64), slots.long())
+    bins, _, _ = SK.dense_bins(torch.tensor(dense_slots(
+        np.random.default_rng(7))[0]), 8, 8)
+    assert torch.equal(SK.decode(bins[2], bins[0].shape[0]),
+                       bins[2].long())
+    assert torch.equal(bins[3].long(), bins[2].long() // 64)
+
+
+def test_plain_forward_sums_chunks_and_fuses_the_mask():
+    """The chunked sum equals a direct per-pixel sum to float rounding; the
+    mask epilogue is exactly 1 - exp of the accumulator."""
+    pts, valid, r_pix = chunk_cloud(np.random.default_rng(8))
+    col, row, b = _bins_for(pts, r_pix, "cpu", valid)
+    args = _fwd_args(col, row, b, r_pix)
+    acc = SK.splat_fwd_plain(*args, to_mask=False)
+    mask = SK.splat_fwd_plain(*args)
+    assert torch.equal(mask, 1.0 - torch.exp(acc))
+    r2_inv = args[-1]
+    p = b.entries.long() % col.shape[0]
+    yy, xx = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    ref = torch.zeros(H, W, dtype=torch.float64)
+    for cell, i in zip(b.ecell.tolist(), p.tolist()):
+        cy, cx = divmod(cell, b.ncx)
+        inside = (yy // 8 == cy) & (xx // 8 == cx)
+        w = 1.0 - ((col[i] - xx) ** 2 + (row[i] - yy) ** 2) * r2_inv
+        ref += torch.where(inside, torch.log1p(-w.clamp(0.0, SK.W_MAX)),
+                           torch.zeros_like(w)).double()
+    np.testing.assert_allclose(acc.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_plain_backward_fuses_the_cotangent_into_entry_slots():
+    """-g * (1 - mask) formed inside equals the cotangent given outright;
+    each entry's pair lands at its entry id and every other slot is 0."""
+    pts, valid, r_pix = chunk_cloud(np.random.default_rng(9))
+    col, row, b = _bins_for(pts, r_pix, "cpu", valid)
+    args = _fwd_args(col, row, b, r_pix)
+    mask = SK.splat_fwd_plain(*args)
+    g_img = torch.randn(H, W, generator=torch.Generator().manual_seed(0))
+    n = col.shape[0]
+    g = SK.splat_bwd_plain(col, row, b.entries, b.ecell, g_img, mask, 8,
+                           b.ncx, args[-1], 4 * n)
+    g_cot = SK.splat_bwd_plain(col, row, b.entries, b.ecell,
+                               -g_img * (1.0 - mask), None, 8, b.ncx,
+                               args[-1], 4 * n)
+    assert torch.equal(g, g_cot)
+    unused = torch.ones(4 * n, dtype=torch.bool)
+    unused[b.entries.long()] = False
+    assert (g[unused] == 0).all() and g[~unused].abs().max() > 0
 
 
 def dense_slots(rng, C=32, ncx=8, cs=8, cap=64, r_pix=2.5):
@@ -182,20 +269,26 @@ def test_dense_cell_forms_match_jax(C, ncx):
 def test_kernels_match_plain_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (runs in chip_smoke.py on the card)")
-    pts, _, r_pix = dense_cloud(np.random.default_rng(4))
-    col, row, b = _bins_for(pts, r_pix, "cuda")
-    args = (col, row, b.entries, b.cell_ids, b.starts, b.counts)
-    r2_inv = 1.0 / (r_pix * r_pix)
+    pts, valid, r_pix = chunk_cloud(np.random.default_rng(4))
+    col, row, b = _bins_for(pts, r_pix, "cuda", valid)
+    args = _fwd_args(col, row, b, r_pix)
     n0 = SK.launches.splat_fwd_launches
-    acc = SK.splat_fwd(*args, 8, b.ncx, b.hp, b.wp, r2_inv)
+    mask = SK.splat_fwd(*args)
     assert SK.launches.splat_fwd_launches == n0 + 1
-    ref = SK.splat_fwd_plain(*args, 8, b.ncx, b.hp, b.wp, r2_inv)
-    torch.testing.assert_close(acc, ref, rtol=1e-4, atol=1e-4)
-    cot = torch.randn(b.hp, b.wp, device="cuda")
-    g = SK.splat_bwd(*args, cot, 8, b.ncx, r2_inv)
-    gp = SK.splat_bwd_plain(*args, cot, 8, b.ncx, r2_inv)
+    torch.testing.assert_close(mask, SK.splat_fwd_plain(*args), rtol=0,
+                               atol=1e-6)
+    assert torch.equal(mask, SK.splat_fwd(*args))          # bit-deterministic
+    acc = SK.splat_fwd(*args, to_mask=False)
+    torch.testing.assert_close(acc, SK.splat_fwd_plain(*args, to_mask=False),
+                               rtol=1e-4, atol=1e-4)
+    g_img = torch.randn(H, W, device="cuda")
+    bwd = (col, row, b.entries, b.ecell, g_img, mask, 8, b.ncx, args[-1],
+           4 * col.shape[0])
+    g = SK.splat_bwd(*bwd)
+    gp = SK.splat_bwd_plain(*bwd)
     torch.testing.assert_close(g, gp, rtol=0,
                                atol=1e-4 * float(gp.abs().max()))
+    assert torch.equal(g, SK.splat_bwd(*bwd))
     pts_d, _ = dense_slots(np.random.default_rng(5))
     pts_d = torch.tensor(pts_d, device="cuda")
     torch.testing.assert_close(SK.splat_fwd_cells(pts_d, 8, 8, 2.5),
@@ -205,12 +298,13 @@ def test_kernels_match_plain_on_the_card():
     gd = SK.splat_bwd_cells_plain(pts_d, cot_d, 8, 8, 2.5)
     torch.testing.assert_close(SK.splat_bwd_cells(pts_d, cot_d, 8, 8, 2.5),
                                gd, rtol=0, atol=1e-4 * float(gd.abs().max()))
-    # no active cell: the wrappers launch nothing and count nothing
+    # no entry: the wrappers launch nothing and count nothing
     none = torch.zeros(0, dtype=torch.int32, device="cuda")
     n0 = (SK.launches.splat_fwd_launches, SK.launches.splat_bwd_launches)
-    acc0 = SK.splat_fwd(col, row, none, none, none, none, 8, b.ncx, b.hp,
-                        b.wp, r2_inv)
-    g0 = SK.splat_bwd(col, row, none, none, none, none, cot, 8, b.ncx, r2_inv)
-    assert (acc0 == 0).all() and g0.shape == (0, 2)
+    m0 = SK.splat_fwd(col, row, none, none, none, none, none, 8, b.ncx, H, W,
+                      args[-1])
+    g0 = SK.splat_bwd(col, row, none, none, g_img, m0, 8, b.ncx, args[-1],
+                      4 * col.shape[0])
+    assert (m0 == 0).all() and (g0 == 0).all()
     assert (SK.launches.splat_fwd_launches,
             SK.launches.splat_bwd_launches) == n0
