@@ -32,17 +32,20 @@ Phases:
      and principal point scaled by 1080/512);
   7. the kernels' JSON line, then the device JSON line last.
 
-Each kernel is timed three ways at each shape: ``device_us``, its own time
-on the card (CUDA events around 100 back-to-back launches of the raw ctypes
-entry point with the arguments prepared once, behind a sleep kernel that
-keeps the stream busy); ``wrapper_ms``, one call of the wrapper the main
-path calls, on an idle stream (host checks, allocations, the ctypes call
-and the kernel: what the main path pays per call); ``plain_ms``, the plain
-PyTorch version.  ``bound_us`` is the least time the card could take: the
-larger of the operations these inputs need at the float32 peak and the
-bytes at the memory rate (``bound_by`` says which).  ``library_ms`` is null:
-no single PyTorch call computes a binned splat sum or a z-buffered triangle
-raster.
+Each kernel is timed four ways at each shape: ``device_us``, its own time
+on the card with its inputs in L2 (CUDA events around 100 back-to-back
+launches of the raw ctypes entry point with the arguments prepared once,
+behind a sleep kernel that keeps the stream busy); ``device_cold_us``, the
+same launch alone after a read of 128 MB has emptied L2 of its inputs;
+``wrapper_ms``, one call of the wrapper the main path calls, on an idle
+stream (host checks, allocations, the ctypes call and the kernel: what the
+main path pays per call); ``plain_ms``, the plain PyTorch version.
+``bound_us`` is the least time the card could take for the timed launch:
+the larger of the operations these inputs need at the float32 peak and the
+bytes the launch must move at the HBM rate (``bound_by`` says which; the
+zero fills torch makes before a launch are not counted).  ``library_ms`` is
+null: no single PyTorch call computes a binned splat sum or a z-buffered
+triangle raster.
 
 Imports nothing of JAX.  Exits nonzero when any phase fails or no CUDA card
 is present; there is no CPU fallback.
@@ -136,13 +139,14 @@ def wrapper_ms(fn, runs=25, warmup=3):
 
 
 def device_us(call, n=100, reps=3):
-    """The kernel's own device time in us: CUDA events around n
-    back-to-back launches of the raw ctypes entry point, with its arguments
-    prepared once (call = (function, arguments, output)), divided by n;
-    the median of reps such runs.  A sleep kernel queued first keeps the
-    stream busy while the host enqueues the launches, so no host time falls
-    between them.  Inputs stay in L2 from launch to launch, as they do on
-    the main path, where the binning has just written them."""
+    """The kernel's own device time in us with its inputs in L2: CUDA events
+    around n back-to-back launches of the raw ctypes entry point, with its
+    arguments prepared once (call = (function, arguments, output)), divided
+    by n; the median of reps such runs.  A sleep kernel queued first keeps
+    the stream busy while the host enqueues the launches, so no host time
+    falls between them.  The inputs (at most ~20 MB here) stay in the 50 MB
+    L2 from launch to launch; ``device_cold_us`` times the same launch from
+    HBM."""
     import torch
     fn, args = call[:2]      # call[2] keeps the launch's buffers alive
     check_err(fn(*args))
@@ -161,6 +165,32 @@ def device_us(call, n=100, reps=3):
     return statistics.median(times)
 
 
+def device_cold_us(call, n=50):
+    """The kernel's own device time in us with a cold L2: before each of n
+    launches a 128 MB buffer (over twice the H100's 50 MB L2) is read, so
+    the launch finds none of its inputs in L2 and no dirty line to write
+    back; CUDA events around each launch alone; the median.  Behind a sleep
+    kernel, as in ``device_us``."""
+    import torch
+    fn, args = call[:2]
+    flush = torch.ones(32 << 20, dtype=torch.float32, device="cuda")
+    total = torch.empty((), device="cuda")
+    check_err(fn(*args))
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    torch.cuda._sleep(20_000_000)
+    errs = []
+    for a, b in ev:
+        torch.sum(flush, dim=0, out=total)
+        a.record()
+        errs.append(fn(*args))
+        b.record()
+    torch.cuda.synchronize()
+    check_err(max(errs))
+    return statistics.median(a.elapsed_time(b) * 1e3 for a, b in ev)
+
+
 def check_err(err):
     if err != 0:
         raise RuntimeError(f"raw launch returned cudaError_t {err}")
@@ -173,40 +203,57 @@ def bound_us(ops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def splat_work(col, row, entries, cell_ids, counts, cs, ncx, r2_inv):
-    """What these splat inputs need: (entry, cell pixel) pairs, the pairs
-    inside each splat's square bbox (what an exact kernel must test), the
-    in-radius pairs of the forward (w > 0) and of the backward
+def cell_pixels(cell_ids, cs, ncx, H, W):
+    """Pixels of the (H, W) image inside these cells."""
+    import torch
+    c = cell_ids.long()
+    w = (W - c % ncx * cs).clamp(0, cs)
+    h = (H - c // ncx * cs).clamp(0, cs)
+    return int((w * h).sum()) if c.numel() else 0
+
+
+def splat_work(col, row, entries, cell_ids, counts, cs, ncx, r2_inv, H, W):
+    """What these splat inputs need: the distinct points the entries name,
+    the active cells' pixels in the image, the (entry, cell pixel) pairs,
+    the pairs inside each splat's square bbox (what an exact kernel must
+    test), the in-radius pairs of the forward (w > 0) and of the backward
     (0 < w < 1 - 1e-5)."""
     import torch
+    from selfreconcode_tpu_torch.ops.splat_kernels import decode
     P = cs * cs
-    p = entries.long() % col.shape[0]
+    p = decode(entries, col.shape[0])
     cell = torch.repeat_interleave(cell_ids.long(), counts.long())
     k = torch.arange(P, device=col.device)
     dc = col[p][:, None] - ((cell % ncx * cs)[:, None] + k % cs).float()
     dr = row[p][:, None] - ((cell // ncx * cs)[:, None] + k // cs).float()
     w = 1.0 - (dc * dc + dr * dr) * r2_inv
     r = r2_inv ** -0.5
-    return {"cell_pairs": int(p.numel()) * P,
+    return {"points": int(torch.unique(p).numel()),
+            "cell_px": cell_pixels(cell_ids[counts > 0], cs, ncx, H, W),
+            "cell_pairs": int(p.numel()) * P,
             "bbox_pairs": int(((dc.abs() <= r) & (dr.abs() <= r)).sum()),
             "fwd_hits": int((w > 0).sum()),
             "bwd_hits": int(((w > 0) & (w < 1.0 - 1e-5)).sum())}
 
 
-def splat_bounds(work, n_pts, M, A, P, H, W):
-    """Bounds of the forward and the backward at one shape.  Forward: reads
-    the points, entries, entry cells and the three per-cell arrays, writes
-    the (H, W) mask, and forms 1 - exp(acc) on every active-cell pixel.
-    Backward: reads the points, entries, entry cells, the mask's gradient
-    and the mask, forms the cotangent on every active-cell pixel, and
-    writes a gradient pair for each of the 4 * n_pts entry slots."""
-    ins = 8 * n_pts + 8 * M
+def splat_bounds(work, M, n_cells, fused):
+    """Bounds of the timed forward and backward launches at one shape, from
+    what they must touch.  The zero fills of the output image and of the
+    slot gradients are torch's, before the launch, and count for neither.
+    Forward: reads the distinct points, the M entries and their cells and
+    the n_cells per-cell arrays, and writes the active cells' pixels (with
+    1 - exp(acc) on each when fused).  Backward: reads the points, entries
+    and entry cells, and on the active cells' pixels the mask's gradient
+    and the mask (fused: it forms -g (1 - mask) there) or the cotangent,
+    and writes M gradient pairs."""
+    px = work["cell_px"]
+    ins = 8 * work["points"] + 8 * M
     fwd = bound_us(OPS_PAIR * work["bbox_pairs"]
-                   + OPS_LOG1P * work["fwd_hits"] + OPS_EXP * A * P,
-                   ins + 12 * A + 4 * H * W)
+                   + OPS_LOG1P * work["fwd_hits"] + fused * OPS_EXP * px,
+                   ins + 12 * n_cells + 4 * px)
     bwd = bound_us(OPS_PAIR * work["bbox_pairs"]
-                   + OPS_BWD_HIT * work["bwd_hits"] + OPS_COT * A * P,
-                   ins + 8 * H * W + 32 * n_pts)
+                   + OPS_BWD_HIT * work["bwd_hits"] + fused * OPS_COT * px,
+                   ins + (8 if fused else 4) * px + 8 * M)
     return fwd, bwd
 
 
@@ -252,9 +299,10 @@ def compare_kernels(label, cam, pts, radius, seed):
         gmax = float(gp.abs().max())
         bwd_err = float((gk - gp).abs().max())
         work = splat_work(col, row, b.entries, b.cell_ids, b.counts, b.cs,
-                          b.ncx, r2_inv)
+                          b.ncx, r2_inv, H, W)
         (fb, fby), (bb, bby) = splat_bounds(
-            work, n, b.entries.numel(), b.cell_ids.numel(), b.cs * b.cs, H, W)
+            work, b.entries.numel(), b.cell_ids.numel(), fused=True)
+        fcall, bcall = SK.fwd_call(*fargs), SK.bwd_call(*bargs)
         out = {
             "shape": label, "n_pts": int(pts.shape[0]),
             "entries": int(b.entries.numel()),
@@ -263,11 +311,13 @@ def compare_kernels(label, cam, pts, radius, seed):
             "fwd_max_err": fwd_err, "mask_max_abs_err": mask_err,
             "bwd_max_abs_err": bwd_err,
             "bwd_max_abs_g": gmax, "bit_identical": same,
-            "fwd_device_us": device_us(SK.fwd_call(*fargs)),
+            "fwd_device_us": device_us(fcall),
+            "fwd_device_cold_us": device_cold_us(fcall),
             "fwd_wrapper_ms": wrapper_ms(lambda: SK.fwd(*fargs)),
             "fwd_plain_ms": wrapper_ms(lambda: SK.splat_fwd_plain(*fargs)),
             "fwd_bound_us": fb, "fwd_bound_by": fby,
-            "bwd_device_us": device_us(SK.bwd_call(*bargs)),
+            "bwd_device_us": device_us(bcall),
+            "bwd_device_cold_us": device_cold_us(bcall),
             "bwd_wrapper_ms": wrapper_ms(lambda: SK.bwd(*bargs)),
             "bwd_plain_ms": wrapper_ms(lambda: SK.splat_bwd_plain(*bargs)),
             "bwd_bound_us": bb, "bwd_bound_by": bby,
@@ -331,31 +381,30 @@ def compare_dense(label, cam, pts, radius, seed):
         bwd_err = float((g_k - g_p).abs().max())
         same = (torch.equal(acc_k, SK.splat_fwd_cells(dense, *args)),
                 torch.equal(g_k, SK.splat_bwd_cells(dense, cot, *args)))
+        # the timed launches read the compacted bins, never the dense slots
         col_d, row_d, ent_d, _, cells_d, _, counts_d = bins
         work = splat_work(col_d, row_d, ent_d, cells_d, counts_d, b.cs, b.ncx,
-                          r2_inv)
-        P = b.cs * b.cs
-        fb, fby = bound_us(OPS_PAIR * work["bbox_pairs"]
-                           + OPS_LOG1P * work["fwd_hits"],
-                           8 * C * cap + 4 * C * P)
-        bb, bby = bound_us(OPS_PAIR * work["bbox_pairs"]
-                           + OPS_BWD_HIT * work["bwd_hits"],
-                           8 * C * cap + 4 * C * P + 8 * C * cap)
+                          r2_inv, hp, wp)
+        (fb, fby), (bb, bby) = splat_bounds(work, ent_d.numel(), C,
+                                            fused=False)
+        fcall = SK.fwd_call(*bins, b.cs, b.ncx, hp, wp, r2_inv, to_mask=False)
+        bcall = SK.bwd_call(*bins[:4], cot_img, None, b.cs, b.ncx, r2_inv,
+                            C * cap)
         out = {
             "shape": label, "cells": C, "cap": cap,
             "filled_slots": int(b.entries.numel()), **work,
             "fwd_max_err": fwd_err, "fwd_max_abs_err": fwd_abs,
             "bwd_max_abs_err": bwd_err, "bwd_max_abs_g": gmax,
             "bit_identical": same,
-            "fwd_device_us": device_us(SK.fwd_call(
-                *bins, b.cs, b.ncx, hp, wp, r2_inv, to_mask=False)),
+            "fwd_device_us": device_us(fcall),
+            "fwd_device_cold_us": device_cold_us(fcall),
             "fwd_wrapper_ms": wrapper_ms(
                 lambda: SK.splat_fwd_cells(dense, *args)),
             "fwd_plain_ms": wrapper_ms(
                 lambda: SK.splat_fwd_cells_plain(dense, *args)),
             "fwd_bound_us": fb, "fwd_bound_by": fby,
-            "bwd_device_us": device_us(SK.bwd_call(
-                *bins[:4], cot_img, None, b.cs, b.ncx, r2_inv, C * cap)),
+            "bwd_device_us": device_us(bcall),
+            "bwd_device_cold_us": device_cold_us(bcall),
             "bwd_wrapper_ms": wrapper_ms(
                 lambda: SK.splat_bwd_cells(dense, cot, *args)),
             "bwd_plain_ms": wrapper_ms(
@@ -378,15 +427,17 @@ def compare_dense(label, cam, pts, radius, seed):
 def timings(res, prefix=""):
     """One shape's numbers for the kernels line."""
     return {key: res[prefix + key] for key in
-            ("device_us", "wrapper_ms", "plain_ms", "bound_us", "bound_by")}
+            ("device_us", "device_cold_us", "wrapper_ms", "plain_ms",
+             "bound_us", "bound_by")}
 
 
 def kernel_row(name, source, line, launches, max_abs_err, shapes, head,
                note=None):
     """A kernel's entry in the kernels line: the contract's keys at the
     shape the main path meets most (head), and every shape's numbers.  ms
-    is the kernel's own device time; wrapper_ms adds the wrapper's host
-    work on an idle stream."""
+    is the kernel's own device time with its inputs in L2 (device_cold_us:
+    from HBM); wrapper_ms adds the wrapper's host work on an idle
+    stream."""
     h = shapes[head]
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": f"selfreconcode_tpu/ops/pallas_raster.py:{line}",
@@ -394,6 +445,7 @@ def kernel_row(name, source, line, launches, max_abs_err, shapes, head,
            "ms": h["device_us"] / 1e3, "plain_ms": h["plain_ms"],
            "bound_ms": h["bound_us"] / 1e3, "bound_by": h["bound_by"],
            "library_ms": None, "device_us": h["device_us"],
+           "device_cold_us": h["device_cold_us"],
            "wrapper_ms": h["wrapper_ms"], "bound_us": h["bound_us"],
            "at": head, "shapes": shapes}
     if note:
@@ -425,9 +477,13 @@ def compare_mesh(label, cam, verts, faces):
         ext = torch.maximum(xs.amax(1) - xs.amin(1), ys.amax(1) - ys.amin(1))
         M, A = b.entries.numel(), b.cell_ids.numel()
         pairs = M * b.cs * b.cs
-        bnd, bnd_by = bound_us(OPS_MESH_PAIR * pairs,
-                               36 * rec.shape[0] + 4 * M + 12 * A
-                               + 20 * cam.H * cam.W)
+        # the launch reads the binned faces' records, the entries and the
+        # per-cell arrays and writes z, face and bary on the active cells'
+        # pixels (torch fills the rest before it)
+        bnd, bnd_by = bound_us(
+            OPS_MESH_PAIR * pairs, 36 * r.shape[0] + 4 * M + 12 * A
+            + 20 * cell_pixels(b.cell_ids, b.cs, b.ncx, cam.H, cam.W))
+        call = MK.raster_call(*args)
         out = {
             "shape": label, "faces": int(faces.shape[0]), "cell_px": b.cs,
             "max_face_px": float(ext.max()),
@@ -439,7 +495,8 @@ def compare_mesh(label, cam, verts, faces):
             "z_max_abs_err": float(dz[both].max()),
             "face_disagree": int(diff.sum()), "bary_max_abs_err": bary_err,
             "pairs": pairs,
-            "device_us": device_us(MK.raster_call(*args)),
+            "device_us": device_us(call),
+            "device_cold_us": device_cold_us(call),
             "wrapper_ms": wrapper_ms(lambda: MK.mesh_fragments(*args)),
             "plain_ms": wrapper_ms(lambda: MK.mesh_fragments_plain(*args)),
             "bound_us": bnd, "bound_by": bnd_by,

@@ -83,10 +83,13 @@ class CudaLibrary:
         return out
 
     def load(self):
-        with self._lock:
-            if self._lib is None:
-                lib = ctypes.CDLL(str(self.build()))
-                self._bind(lib)
-                self._lib = lib
+        """The bound library; built and loaded at the first call.  Once it
+        is loaded, a call takes no lock (the launch path calls it)."""
+        if self._lib is None:
+            with self._lock:
+                if self._lib is None:
+                    lib = ctypes.CDLL(str(self.build()))
+                    self._bind(lib)
+                    self._lib = lib
         return self._lib
 

@@ -90,10 +90,9 @@ class _SplatMask(torch.autograd.Function):
             SK.check_points(col, row)
             bins = splat_bins(col, row, z, point_valid, r_pix, H, W, cs)
             r2_inv = 1.0 / float(r_pix * r_pix)
-            mask, ran = SK.fwd(col, row, bins.entries, bins.ecell,
-                               bins.cell_ids, bins.starts, bins.counts, cs,
-                               bins.ncx, H, W, r2_inv)
-            SK.launches.splat_fwd_launches += ran
+            mask = SK.fwd(col, row, bins.entries, bins.ecell, bins.cell_ids,
+                          bins.starts, bins.counts, cs, bins.ncx, H, W,
+                          r2_inv)
             occ = bins.counts.max() if bins.counts.numel() else \
                 torch.zeros((), dtype=torch.int32, device=col.device)
             stats = torch.stack([occ.to(torch.int64),
@@ -110,10 +109,9 @@ class _SplatMask(torch.autograd.Function):
         col, row, mask, entries, ecell = ctx.saved_tensors
         cs, ncx, r2_inv = ctx.geom
         n = col.shape[0]
-        g_slots, ran = SK.bwd(col, row, entries, ecell,
-                              g.to(torch.float32).contiguous(), mask, cs,
-                              ncx, r2_inv, 4 * n)
-        SK.launches.splat_bwd_launches += ran
+        g_slots = SK.bwd(col, row, entries, ecell,
+                         g.to(torch.float32).contiguous(), mask, cs, ncx,
+                         r2_inv, 4 * n)
         g_pts = g_slots.reshape(4, n, 2).sum(0)
         return g_pts[:, 0], g_pts[:, 1], None, None, None, None, None, None
 

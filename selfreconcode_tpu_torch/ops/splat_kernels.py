@@ -31,6 +31,7 @@ goes to the kernel or raises.  ``launches`` counts kernel launches only.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -75,14 +76,6 @@ def _bind(lib):
 
 
 LIB = CudaLibrary("splat.cu", "libsrt_splat", _bind)
-_lib = None      # the loaded library, kept once the first launch loads it
-
-
-def _loaded():
-    global _lib
-    if _lib is None:
-        _lib = LIB.load()
-    return _lib
 
 
 def check_points(col, row):
@@ -220,7 +213,7 @@ def fwd_call(col, row, entries, ecell, cell_ids, starts, counts, cs, ncx,
     chunks = -(-entries.shape[0] // CHUNK)
     partial = torch.empty((chunks, 2, cs * cs), dtype=torch.float32,
                           device=col.device)
-    return _loaded().srt_splat_fwd, (
+    return LIB.load().srt_splat_fwd, (
         col.data_ptr(), row.data_ptr(), col.shape[0], entries.data_ptr(),
         ecell.data_ptr(), entries.shape[0], cell_ids.data_ptr(),
         starts.data_ptr(), counts.data_ptr(), cell_ids.shape[0], cs, ncx,
@@ -234,7 +227,7 @@ def bwd_call(col, row, entries, ecell, g_img, mask_img, cs, ncx, r2_inv,
     output)."""
     g = torch.zeros((n_slots, 2), dtype=torch.float32, device=col.device)
     h, w = g_img.shape
-    return _loaded().srt_splat_bwd, (
+    return LIB.load().srt_splat_bwd, (
         col.data_ptr(), row.data_ptr(), col.shape[0], entries.data_ptr(),
         ecell.data_ptr(), entries.shape[0], cs, ncx, h, w, float(r2_inv),
         _r_box(r2_inv), g_img.data_ptr(),
@@ -247,39 +240,45 @@ def _require_cuda(t, what: str):
         raise ValueError(f"{what}: unsupported device {t.device}")
 
 
+def _count(counter: str):
+    setattr(launches, counter, getattr(launches, counter) + 1)
+
+
 def fwd(col, row, entries, ecell, cell_ids, starts, counts, cs, ncx, out_h,
-        out_w, r2_inv, to_mask=True):
-    """The forward on checked inputs: (image, launched).  CPU -> plain
-    version; CUDA -> the kernel (or an exception); with no entry nothing
-    is launched."""
+        out_w, r2_inv, to_mask=True, counter="splat_fwd_launches"):
+    """The forward on checked inputs.  CPU -> plain version; CUDA -> the
+    kernel (or an exception), counted in ``launches.<counter>``; with no
+    entry nothing is launched."""
     if col.device.type == "cpu":
         return splat_fwd_plain(col, row, entries, ecell, cell_ids, starts,
-                               counts, cs, ncx, out_h, out_w, r2_inv,
-                               to_mask), False
+                               counts, cs, ncx, out_h, out_w, r2_inv, to_mask)
     _require_cuda(col, "splat_fwd")
     fn, args, (out, partial) = fwd_call(col, row, entries, ecell, cell_ids,
                                         starts, counts, cs, ncx, out_h,
                                         out_w, r2_inv, to_mask)
     if entries.shape[0] == 0:
-        return out, False
+        return out
     check_launch(fn(*args), "splat_fwd")
+    _count(counter)
     del partial      # freed only now: the launch that uses it is queued
-    return out, True
+    return out
 
 
 def bwd(col, row, entries, ecell, g_img, mask_img, cs, ncx, r2_inv,
-        n_slots):
-    """The backward on checked inputs: (per-slot gradients, launched)."""
+        n_slots, counter="splat_bwd_launches"):
+    """The backward on checked inputs: per-slot gradients.  A launch is
+    counted in ``launches.<counter>``."""
     if col.device.type == "cpu":
         return splat_bwd_plain(col, row, entries, ecell, g_img, mask_img, cs,
-                               ncx, r2_inv, n_slots), False
+                               ncx, r2_inv, n_slots)
     _require_cuda(col, "splat_bwd")
     fn, args, g = bwd_call(col, row, entries, ecell, g_img, mask_img, cs,
                            ncx, r2_inv, n_slots)
     if entries.shape[0] == 0:
-        return g, False
+        return g
     check_launch(fn(*args), "splat_bwd")
-    return g, True
+    _count(counter)
+    return g
 
 
 def splat_fwd(col, row, entries, ecell, cell_ids, starts, counts, cs: int,
@@ -289,10 +288,8 @@ def splat_fwd(col, row, entries, ecell, cell_ids, starts, counts, cs: int,
     plain version; CUDA -> the kernel (or an exception)."""
     check_points(col, row)
     check_bins(col, entries, ecell, cell_ids, starts, counts, cs=cs)
-    out, ran = fwd(col, row, entries, ecell, cell_ids, starts, counts, cs,
-                   ncx, out_h, out_w, r2_inv, to_mask)
-    launches.splat_fwd_launches += ran
-    return out
+    return fwd(col, row, entries, ecell, cell_ids, starts, counts, cs, ncx,
+               out_h, out_w, r2_inv, to_mask)
 
 
 def splat_bwd(col, row, entries, ecell, g_img, mask_img, cs: int, ncx: int,
@@ -306,10 +303,8 @@ def splat_bwd(col, row, entries, ecell, g_img, mask_img, cs: int, ncx: int,
         _check_image(mask_img, col, "mask_img")
         if mask_img.shape != g_img.shape:
             raise ValueError("mask_img and g_img must have one shape")
-    g, ran = bwd(col, row, entries, ecell, g_img, mask_img, cs, ncx, r2_inv,
-                 n_slots)
-    launches.splat_bwd_launches += ran
-    return g
+    return bwd(col, row, entries, ecell, g_img, mask_img, cs, ncx, r2_inv,
+               n_slots)
 
 
 # ---------------------------------------------------------------------------
@@ -356,42 +351,38 @@ def cells_to_image(cells, cs: int, ncx: int):
         ncy * cs, ncx * cs).contiguous()
 
 
-def _dense_fwd(pts, cs: int, ncx: int, r_pix: float, plain: bool):
+def _dense_fwd(pts, cs: int, ncx: int, r_pix: float, run):
     bins, hp, wp = dense_bins(pts, cs, ncx)
-    args = (*bins, cs, ncx, hp, wp, 1.0 / float(r_pix * r_pix), False)
-    acc, ran = (splat_fwd_plain(*args), False) if plain else fwd(*args)
-    return _image_to_cells(acc, pts.shape[0], cs, ncx), ran
+    acc = run(*bins, cs, ncx, hp, wp, 1.0 / float(r_pix * r_pix), False)
+    return _image_to_cells(acc, pts.shape[0], cs, ncx)
 
 
-def _dense_bwd(pts, cot, cs: int, ncx: int, r_pix: float, plain: bool):
+def _dense_bwd(pts, cot, cs: int, ncx: int, r_pix: float, run):
     C, _, cap = pts.shape
     bins, _, _ = dense_bins(pts, cs, ncx)
-    args = (*bins[:4], cells_to_image(cot, cs, ncx), None, cs, ncx,
+    g = run(*bins[:4], cells_to_image(cot, cs, ncx), None, cs, ncx,
             1.0 / float(r_pix * r_pix), C * cap)
-    g, ran = (splat_bwd_plain(*args), False) if plain else bwd(*args)
-    return g.reshape(C, cap, 2).permute(0, 2, 1).contiguous(), ran
+    return g.reshape(C, cap, 2).permute(0, 2, 1).contiguous()
 
 
 def splat_fwd_cells_plain(pts, cs: int, ncx: int, r_pix: float):
-    return _dense_fwd(pts, cs, ncx, r_pix, plain=True)[0]
+    return _dense_fwd(pts, cs, ncx, r_pix, splat_fwd_plain)
 
 
 def splat_bwd_cells_plain(pts, cot, cs: int, ncx: int, r_pix: float):
-    return _dense_bwd(pts, cot, cs, ncx, r_pix, plain=True)[0]
+    return _dense_bwd(pts, cot, cs, ncx, r_pix, splat_bwd_plain)
 
 
 def splat_fwd_cells(pts, cs: int, ncx: int, r_pix: float):
     """pts (C, 2, cap) -> accumulated log1p(-w) (C, cs*cs).  CPU -> plain
     version; CUDA -> the forward kernel (or an exception)."""
-    acc, ran = _dense_fwd(pts, cs, ncx, r_pix, plain=False)
-    launches.splat_fwd_cells_launches += ran
-    return acc
+    return _dense_fwd(pts, cs, ncx, r_pix, functools.partial(
+        fwd, counter="splat_fwd_cells_launches"))
 
 
 def splat_bwd_cells(pts, cot, cs: int, ncx: int, r_pix: float):
     """pts (C, 2, cap), cot (C, cs*cs) -> per-slot (d col, d row)
     (C, 2, cap), zero on empty slots.  CPU -> plain version; CUDA -> the
     backward kernel (or an exception)."""
-    g, ran = _dense_bwd(pts, cot, cs, ncx, r_pix, plain=False)
-    launches.splat_bwd_cells_launches += ran
-    return g
+    return _dense_bwd(pts, cot, cs, ncx, r_pix, functools.partial(
+        bwd, counter="splat_bwd_cells_launches"))

@@ -18,6 +18,8 @@ than two chunks and runs that cross chunk edges), the mask formed inside
 the forward, the cotangent -g * (1 - mask) inside the backward, and each
 entry's gradient written at its entry id.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -157,15 +159,20 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     pts, _, r_pix = dense_cloud(np.random.default_rng(3))
     col, row, b = _bins_for(pts, r_pix, "cpu")
     args = _fwd_args(col, row, b, r_pix)
-    before = (SK.launches.splat_fwd_launches, SK.launches.splat_bwd_launches)
+    before = dataclasses.astuple(SK.launches)
     mask = SK.splat_fwd(*args)
     torch.testing.assert_close(mask, SK.splat_fwd_plain(*args))
+    assert torch.equal(SK.fwd(*args), mask)
     g_img = torch.randn(H, W)
-    g = SK.splat_bwd(col, row, b.entries, b.ecell, g_img, mask, 8, b.ncx,
-                     args[-1], 4 * col.shape[0])
+    bargs = (col, row, b.entries, b.ecell, g_img, mask, 8, b.ncx, args[-1],
+             4 * col.shape[0])
+    g = SK.splat_bwd(*bargs)
     assert g.shape == (4 * col.shape[0], 2)
-    assert (SK.launches.splat_fwd_launches,
-            SK.launches.splat_bwd_launches) == before
+    assert torch.equal(SK.bwd(*bargs), g)
+    pts_d = torch.tensor(dense_slots(np.random.default_rng(3))[0])
+    SK.splat_bwd_cells(pts_d, SK.splat_fwd_cells(pts_d, 8, 8, 2.5), 8, 8,
+                       2.5)
+    assert dataclasses.astuple(SK.launches) == before
     with pytest.raises(TypeError):
         SK.splat_fwd(col.double(), row, *args[2:])
 
@@ -289,8 +296,16 @@ def test_kernels_match_plain_on_the_card():
     torch.testing.assert_close(g, gp, rtol=0,
                                atol=1e-4 * float(gp.abs().max()))
     assert torch.equal(g, SK.splat_bwd(*bwd))
+    # the unchecked launchers count where they launch, whoever calls them
+    n0 = (SK.launches.splat_fwd_launches, SK.launches.splat_bwd_launches)
+    SK.fwd(*args)
+    SK.bwd(*bwd)
+    assert (SK.launches.splat_fwd_launches,
+            SK.launches.splat_bwd_launches) == (n0[0] + 1, n0[1] + 1)
     pts_d, _ = dense_slots(np.random.default_rng(5))
     pts_d = torch.tensor(pts_d, device="cuda")
+    d0 = (SK.launches.splat_fwd_cells_launches,
+          SK.launches.splat_bwd_cells_launches)
     torch.testing.assert_close(SK.splat_fwd_cells(pts_d, 8, 8, 2.5),
                                SK.splat_fwd_cells_plain(pts_d, 8, 8, 2.5),
                                rtol=1e-4, atol=1e-4)
@@ -298,6 +313,8 @@ def test_kernels_match_plain_on_the_card():
     gd = SK.splat_bwd_cells_plain(pts_d, cot_d, 8, 8, 2.5)
     torch.testing.assert_close(SK.splat_bwd_cells(pts_d, cot_d, 8, 8, 2.5),
                                gd, rtol=0, atol=1e-4 * float(gd.abs().max()))
+    assert (SK.launches.splat_fwd_cells_launches,
+            SK.launches.splat_bwd_cells_launches) == (d0[0] + 1, d0[1] + 1)
     # no entry: the wrappers launch nothing and count nothing
     none = torch.zeros(0, dtype=torch.int32, device="cuda")
     n0 = (SK.launches.splat_fwd_launches, SK.launches.splat_bwd_launches)
