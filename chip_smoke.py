@@ -21,15 +21,19 @@ Phases:
      with 2 evaluated frames, each maskE finite and in [0, 1];
   5. splat kernels vs plain on the card at shape A (1080x1080 frame, 134k
      points on a body-sized shell, radius 0.0041), shape B (the trained
-     template deformed into frame 0 of the 512x512 scene, radius 0.006) and
+     template deformed into frame 0 of the 512x512 scene, radius 0.006),
      shape E (the same template at 1080x1080, focal and principal point
-     scaled by 1080/512, radius 0.0041: what the fine stage feeds them), and
-     the dense-cell forms at shape B's bins laid out densely.  Each kernel
-     runs twice and must give the same bits;
+     scaled by 1080/512, radius 0.0041: what the fine stage feeds them) and
+     shape R (50k splats each at distance r from a pixel centre, where the
+     backward's coefficient jumps: the kernels must round w as the plain
+     version does), and the dense-cell forms at shape B's bins laid out
+     densely.  Each kernel runs twice and must give the same bits;
   6. mesh kernel vs plain on the card at shape C (phase 4's template, the
      remesh of the trained SDF, deformed into frame 0 at 512x512 as the
-     geometry pass deforms it) and shape D (the same at 1080x1080, focal
-     and principal point scaled by 1080/512);
+     geometry pass deforms it), shape C-dup (C's faces twice over: every
+     hit is an exact depth tie, which the first copy must win) and shape D
+     (C at 1080x1080, focal and principal point scaled by 1080/512).  Each
+     launch runs twice and must give the same bits;
   7. the kernels' JSON line, then the device JSON line last.
 
 Each kernel is timed four ways at each shape: ``device_us``, its own time
@@ -81,9 +85,13 @@ OPS_BWD_HIT = 9         # backward, per pair with 0 < w < 1 - 1e-5: 1 - w,
                         # reciprocal, three multiplies, two FMAs
 OPS_EXP = 20            # forward, per active-cell pixel: 1 - exp(acc)
 OPS_COT = 2             # backward, per active-cell pixel: -g * (1 - mask)
-OPS_MESH_PAIR = 40      # mesh kernel, per (face entry, cell pixel): four
-                        # edge functions, three divides, the inside test,
-                        # the depth and its compare (csrc/mesh_raster.cu)
+OPS_MESH_PAIR = 40      # mesh kernel, per (face entry, pixel of the face's
+                        # box in its cell) pair, as the plain version
+                        # computes it: four edge functions, three divides,
+                        # the inside test, the depth and its compare
+OPS_MESH_HIT = 40       # mesh kernel, per hit pixel: the winner's edge
+                        # functions and divides again, three more divides
+                        # to b_i / z_i, their sum and three to normalize
 # mesh kernel vs plain: the kernel is built with -fmad=false and rounds like
 # the plain version, and both keep the first minimum in run order, so every
 # output must be identical: hit mask, z, face id and barycentrics
@@ -117,6 +125,19 @@ def shell_points(n, axes, seed):
     d = rng.normal(size=(n, 3))
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return (d * np.asarray(axes)).astype(np.float32)
+
+
+def rim_points(n, r_pix, size, seed):
+    """(n, 3) screen points (col, row, z = 1) each at distance r_pix from a
+    random pixel centre of a size x size image: every one has a pair with
+    w ~ 0, where the backward's coefficient jumps, so a kernel that rounds w
+    otherwise than the plain version disagrees with it there."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    c = rng.integers(8, size - 8, (n, 2))
+    th = rng.uniform(0.0, 2.0 * np.pi, n)
+    return np.stack([c[:, 0] + r_pix * np.cos(th), c[:, 1] + r_pix * np.sin(th),
+                     np.ones(n)], 1).astype(np.float32)
 
 
 def wrapper_ms(fn, runs=25, warmup=3):
@@ -257,8 +278,9 @@ def splat_bounds(work, M, n_cells, fused):
     return fwd, bwd
 
 
-def compare_kernels(label, cam, pts, radius, seed):
-    """Kernel vs plain on the card at one shape; returns a result dict."""
+def compare_kernels(label, cam, pts, radius, seed, screen=None):
+    """Kernel vs plain on the card at one shape (the world points pts seen
+    by cam, or the given screen points); returns a result dict."""
     import torch
     from selfreconcode_tpu_torch.ops import splat_kernels as SK
     from selfreconcode_tpu_torch.ops.rasterize import (splat_bins,
@@ -268,17 +290,17 @@ def compare_kernels(label, cam, pts, radius, seed):
     H, W = cam.H, cam.W
     r_pix = radius * W / 2.0
     with torch.no_grad():
-        s = transform_points_screen(cam, pts)
+        s = transform_points_screen(cam, pts) if screen is None else screen
         col, row = s[:, 0].contiguous(), s[:, 1].contiguous()
-        valid = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
+        valid = torch.ones(s.shape[0], dtype=torch.bool, device=s.device)
         b = splat_bins(col, row, s[:, 2], valid, r_pix, H, W,
                        splat_cell_size(r_pix, 9))
         r2_inv = 1.0 / float(r_pix * r_pix)
         n = col.shape[0]
         fargs = (col, row, b.entries, b.ecell, b.cell_ids, b.starts,
                  b.counts, b.cs, b.ncx, H, W, r2_inv)
-        gen = torch.Generator(device=pts.device).manual_seed(seed)
-        g_img = torch.randn((H, W), generator=gen, device=pts.device)
+        gen = torch.Generator(device=s.device).manual_seed(seed)
+        g_img = torch.randn((H, W), generator=gen, device=s.device)
 
         mask_k = SK.splat_fwd(*fargs)
         mask_p = SK.splat_fwd_plain(*fargs)
@@ -304,7 +326,7 @@ def compare_kernels(label, cam, pts, radius, seed):
             work, b.entries.numel(), b.cell_ids.numel(), fused=True)
         fcall, bcall = SK.fwd_call(*fargs), SK.bwd_call(*bargs)
         out = {
-            "shape": label, "n_pts": int(pts.shape[0]),
+            "shape": label, "n_pts": int(s.shape[0]),
             "entries": int(b.entries.numel()),
             "active_cells": int(b.cell_ids.numel()),
             "max_occupancy": int(b.counts.max()), **work,
@@ -453,18 +475,57 @@ def kernel_row(name, source, line, launches, max_abs_err, shapes, head,
     return row
 
 
-def compare_mesh(label, cam, verts, faces):
-    """The mesh kernel vs its plain version at one shape."""
+def mesh_work(rec, entries, cell_ids, counts, cs, ncx, H, W, chunk=1 << 22):
+    """What these mesh inputs need, over the (entry, pixel of its cell in
+    the image) pairs in chunks: their count, the pairs inside the entry's
+    pixel box (``pixel_box``: what an exact kernel must test), the pairs
+    inside the triangle, and the entries of slivers whose box is unbounded
+    (their whole cell is tested)."""
+    import torch
+    from selfreconcode_tpu_torch.ops import mesh_kernels as MK
+    P = cs * cs
+    F = rec.shape[0]
+    k = torch.arange(P, device=rec.device)
+    cell_all = torch.repeat_interleave(cell_ids.long(), counts.long())
+    work = {"cell_pairs": 0, "box_pairs": 0, "inside_pairs": 0,
+            "unbounded_entries": 0}
+    for e0 in range(0, entries.numel(), max(chunk // P, 1)):
+        e1 = min(e0 + max(chunk // P, 1), entries.numel())
+        cell = cell_all[e0:e1]
+        px = ((cell % ncx * cs)[:, None] + k % cs).float()
+        py = ((cell // ncx * cs)[:, None] + k // cs).float()
+        r = rec[entries[e0:e1].long() % F]
+        x_lo, x_hi, y_lo, y_hi = (t[:, None] for t in MK.pixel_box(r))
+        img = (px < W) & (py < H)
+        box = img & (px >= x_lo) & (px <= x_hi) & (py >= y_lo) & (py <= y_hi)
+        inside = MK.edge_bary(r[:, None, :], px, py)[3] & img
+        work["cell_pairs"] += int(img.sum())
+        work["box_pairs"] += int(box.sum())
+        work["inside_pairs"] += int(inside.sum())
+        work["unbounded_entries"] += int((x_lo[:, 0] == -math.inf).sum())
+        if bool((inside & ~box).any()):
+            raise AssertionError("a pixel inside a face lies outside its "
+                                 "pixel box")
+    return work
+
+
+def compare_mesh(label, cam, verts, faces, first_faces=None):
+    """The mesh kernel vs its plain version at one shape.  first_faces = F
+    for a mesh whose faces are F faces twice over: every hit must then name
+    a face < F (the first in run order wins the exact depth tie)."""
     import torch
     from selfreconcode_tpu_torch.ops import mesh_kernels as MK
     from selfreconcode_tpu_torch.ops.rasterize import mesh_bins
 
+    H, W = cam.H, cam.W
     with torch.no_grad():
         rec, b = mesh_bins(cam, verts, faces, 8)
         args = (rec, b.entries, b.cell_ids, b.starts, b.counts, b.cs, b.ncx,
-                cam.H, cam.W)
+                H, W)
         zk, fk, bk = MK.mesh_fragments(*args)
         zp, fp, bp = MK.mesh_fragments_plain(*args)
+        same = all(torch.equal(u.view(torch.int32), v.view(torch.int32))
+                   for u, v in zip((zk, fk, bk), MK.mesh_fragments(*args)))
         torch.cuda.synchronize()
         hk, hp = fk >= 0, fp >= 0
         both = hk & hp
@@ -476,31 +537,37 @@ def compare_mesh(label, cam, verts, faces):
         xs, ys = r[:, 0:6:2], r[:, 1:6:2]
         ext = torch.maximum(xs.amax(1) - xs.amin(1), ys.amax(1) - ys.amin(1))
         M, A = b.entries.numel(), b.cell_ids.numel()
-        pairs = M * b.cs * b.cs
-        # the launch reads the binned faces' records, the entries and the
+        work = mesh_work(rec, b.entries, b.cell_ids, b.counts, b.cs, b.ncx,
+                         H, W)
+        # operations: each (entry, pixel of its box in the cell) pair is
+        # tested, each hit pixel's barycentrics recomputed.  Bytes: the
+        # launch reads the binned faces' records, the entries and the
         # per-cell arrays and writes z, face and bary on the active cells'
         # pixels (torch fills the rest before it)
+        hits = int(hp.sum())
         bnd, bnd_by = bound_us(
-            OPS_MESH_PAIR * pairs, 36 * r.shape[0] + 4 * M + 12 * A
-            + 20 * cell_pixels(b.cell_ids, b.cs, b.ncx, cam.H, cam.W))
+            OPS_MESH_PAIR * work["box_pairs"] + OPS_MESH_HIT * hits,
+            36 * r.shape[0] + 4 * M + 12 * A
+            + 20 * cell_pixels(b.cell_ids, b.cs, b.ncx, H, W))
         call = MK.raster_call(*args)
         out = {
             "shape": label, "faces": int(faces.shape[0]), "cell_px": b.cs,
             "max_face_px": float(ext.max()),
-            "entries": int(b.entries.numel()),
-            "active_cells": int(b.cell_ids.numel()),
+            "entries": M, "active_cells": A,
             "max_occupancy": int(b.counts.max()),
-            "hit_pixels": int(hp.sum()),
+            "hit_pixels": hits,
             "hit_mismatch": int((hk != hp).sum()),
             "z_max_abs_err": float(dz[both].max()),
             "face_disagree": int(diff.sum()), "bary_max_abs_err": bary_err,
-            "pairs": pairs,
+            "bit_identical": same, **work,
             "device_us": device_us(call),
             "device_cold_us": device_cold_us(call),
             "wrapper_ms": wrapper_ms(lambda: MK.mesh_fragments(*args)),
             "plain_ms": wrapper_ms(lambda: MK.mesh_fragments_plain(*args)),
             "bound_us": bnd, "bound_by": bnd_by,
         }
+        if first_faces is not None:
+            out["max_hit_face"] = int(fk[hk].max())
     print(f"  {label}: {json.dumps(out)}", flush=True)
     if (out["hit_mismatch"] or out["face_disagree"] or out["z_max_abs_err"]
             or bary_err):
@@ -508,6 +575,11 @@ def compare_mesh(label, cam, verts, faces):
                              f"not identical: {out}")
     if not out["hit_pixels"]:
         raise AssertionError(f"{label}: nothing rasterized")
+    if not same:
+        raise AssertionError(f"{label}: two launches differ")
+    if first_faces is not None and out["max_hit_face"] >= first_faces:
+        raise AssertionError(f"{label}: face {out['max_hit_face']} won an "
+                             f"exact tie against its first copy")
     return out
 
 
@@ -714,10 +786,19 @@ def main(argv=None):
     res_e = compare_kernels(f"E 1080x1080 {pts_b.shape[0]} pts r=0.0041",
                             cam_e, pts_b, 0.0041, 4)
     res_bd = compare_dense(label_b + " dense", cam_b, pts_b, 0.006, 3)
+    # R: 50k splats on circles of radius r around pixel centres (w ~ 0)
+    rim = torch.tensor(rim_points(50000, 0.006 * cam_b.W / 2, cam_b.W, 6),
+                       device=dev)
+    res_r = compare_kernels("R 512x512 50k rim pts r=0.006", cam_b, None,
+                            0.006, 5, screen=rim)
 
     phase(6, f"mesh kernel vs plain on the card ({card})")
     res_c = compare_mesh(f"C 512x512 {faces.shape[0]} faces", cam_c,
                          verts_c, faces)
+    # C-dup: C's faces twice over, so every hit pixel is an exact depth tie
+    res_cd = compare_mesh(f"C-dup 512x512 {2 * faces.shape[0]} faces", cam_c,
+                          verts_c, torch.cat([faces, faces]),
+                          first_faces=faces.shape[0])
     k = 1080 / cam_c.W
     cam_d = Camera(focal=cam_c.focal * k, principal=cam_c.principal * k,
                    R=cam_c.R, T=cam_c.T, H=1080, W=1080)
@@ -726,14 +807,15 @@ def main(argv=None):
 
     splat_src = "selfreconcode_tpu_torch/csrc/splat.cu"
     dense_note = "no caller in either package; launched by chip_smoke.py only"
-    splat = {"A": res_a, "B": res_b, "E": res_e}
+    splat = {"A": res_a, "B": res_b, "E": res_e, "R": res_r}
     kernels = [
         kernel_row("mesh_raster",
                    "selfreconcode_tpu_torch/csrc/mesh_raster.cu", 116,
                    launched["mesh_raster"],
-                   max(r[k] for r in (res_c, res_d)
+                   max(r[k] for r in (res_c, res_cd, res_d)
                        for k in ("z_max_abs_err", "bary_max_abs_err")),
-                   {"C": timings(res_c), "D": timings(res_d)}, "D"),
+                   {"C": timings(res_c), "C-dup": timings(res_cd),
+                    "D": timings(res_d)}, "D"),
         kernel_row("splat_fwd_cells", splat_src, 176,
                    launched["splat_fwd_cells"], res_bd["fwd_max_abs_err"],
                    {"B-dense": timings(res_bd, "fwd_")}, "B-dense",

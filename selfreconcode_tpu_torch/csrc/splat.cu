@@ -64,6 +64,16 @@ constexpr int kStage = 256;         // cotangent floats staged per warp
 constexpr float kWMax = 1.0f - 1e-5f;
 constexpr unsigned kAll = 0xffffffffu;
 
+// w = 1 - (dc^2 + dr^2) r^-2 with every operation rounded on its own, as
+// the plain version rounds it (the compiler would otherwise contract it into
+// FMAs): the backward's coefficient 2 r^-2 / (1 - w) jumps where w crosses
+// 0 and 1 - 1e-5, so both sides must see the same w there.
+__device__ __forceinline__ float weight(float dc, float dr, float r2_inv) {
+  return __fsub_rn(1.0f, __fmul_rn(__fadd_rn(__fmul_rn(dc, dc),
+                                             __fmul_rn(dr, dr)),
+                                   r2_inv));
+}
+
 // point of an entry id k * n + p, k < 4
 __device__ __forceinline__ int decode(int id, int n) {
   const int k = (id >= n) + (id >= 2 * n) + (id >= 3 * n);
@@ -174,7 +184,7 @@ splat_fwd_kernel(const float* __restrict__ col, const float* __restrict__ row,
         const float2 cr = s_cr[warp][j];
         const float dc = cr.x - px;
         const float dr = cr.y - py;
-        const float w = 1.0f - (dc * dc + dr * dr) * r2_inv;
+        const float w = weight(dc, dr, r2_inv);
         prod *= 1.0f - fminf(fmaxf(w, 0.0f), kWMax);
         if (prod < kFlush) {
           acc += logf(prod);
@@ -280,7 +290,7 @@ splat_bwd_kernel(const float* __restrict__ col, const float* __restrict__ row,
     for (int t = 0; t < cnt; ++t) {
       const float dc = ch.c - static_cast<float>(x);
       const float dr = ch.r - static_cast<float>(y);
-      const float w = 1.0f - (dc * dc + dr * dr) * r2_inv;
+      const float w = weight(dc, dr, r2_inv);
       if (w > 0.0f && w < kWMax) {
         const float coef =
             two_r2 * __frcp_rn(1.0f - w) * cc[(y - cy0) * cs + x - cx0];

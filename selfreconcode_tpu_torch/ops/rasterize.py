@@ -155,12 +155,13 @@ class Fragments(NamedTuple):
 
 def mesh_cell_size(footprint: int) -> int:
     """The JAX Pallas path's cells (8 px up to footprint 8, 16 up to 16),
-    then max(8, footprint) up to 32 (one thread per pixel, <= 1024)."""
+    then max(8, footprint) up to 32 (the kernel keeps one key per cell
+    pixel in shared memory, <= 1024)."""
     fp = int(footprint)
     cs = 8 if fp <= 8 else 16 if fp <= 16 else fp
     if cs > 32:
         raise ValueError(f"footprint {fp} px needs {fp} px cells; the mesh "
-                         f"kernel takes at most 32 (cs*cs <= 1024 threads)")
+                         f"kernel takes at most 32 (cs*cs <= 1024 keys)")
     return cs
 
 

@@ -26,8 +26,8 @@ from selfreconcode_tpu.render import camera as JCAM
 from selfreconcode_tpu.render import shading as JSH
 from selfreconcode_tpu_torch.ops import mesh_kernels as MK
 from selfreconcode_tpu_torch.ops.binning import bbox_cell_entries
-from selfreconcode_tpu_torch.ops.rasterize import (Fragments, mesh_bins,
-                                                   rasterize_mesh)
+from selfreconcode_tpu_torch.ops.rasterize import (Fragments, cell_bins,
+                                                   mesh_bins, rasterize_mesh)
 from selfreconcode_tpu_torch.render import camera as TCAM
 from selfreconcode_tpu_torch.render.shading import (phong_shade,
                                                     render_mesh_phong)
@@ -176,24 +176,219 @@ def test_binning_matches_jax_entries():
     assert set(te.tolist()) == {0, 1, 2, 3}
 
 
+def keyed_fragments(rec, entries, cell_ids, starts, counts, cs, ncx, H, W):
+    """The mesh kernel's algorithm in torch: every entry tests only the
+    pixels of its ``pixel_box`` in its cell and the image with
+    ``inside_by_signs``, each inside pair offers ``pack_key(z, run
+    position)``, a pixel keeps the least key, and the winner's
+    barycentrics are recomputed from its record."""
+    F, P = rec.shape[0], cs * cs
+    k = torch.arange(P)
+    cell = torch.repeat_interleave(cell_ids.long(), counts.long())
+    px = (cell % ncx * cs)[:, None] + k % cs
+    py = (cell // ncx * cs)[:, None] + k // cs
+    r = rec[entries.long() % F]
+    x_lo, x_hi, y_lo, y_hi = (t[:, None] for t in MK.pixel_box(r))
+    X, Y = px.float(), py.float()
+    box = ((X >= x_lo) & (X <= x_hi) & (Y >= y_lo) & (Y <= y_hi)
+           & (px < W) & (py < H))
+    ax, ay, bx, by, cx, cy = (r[:, None, j] for j in range(6))
+    inside = MK.inside_by_signs(
+        (bx - ax) * (cy - ay) - (by - ay) * (cx - ax),
+        (cx - bx) * (Y - by) - (cy - by) * (X - bx),
+        (ax - cx) * (Y - cy) - (ay - cy) * (X - cx),
+        (bx - ax) * (Y - ay) - (by - ay) * (X - ax))
+    b0, b1, b2, _ = MK.edge_bary(r[:, None, :], X, Y)
+    z = 1.0 / (b0 / r[:, None, 6] + b1 / r[:, None, 7]
+               + b2 / r[:, None, 8]).clamp_min(1e-12)
+    take = box & inside & (z < float("inf"))
+    pos = torch.arange(entries.shape[0])[:, None].expand(-1, P)
+    key = torch.full((H * W,), MK.KEY_EMPTY, dtype=torch.int64)
+    key.scatter_reduce_(0, (py * W + px)[take],
+                        MK.pack_key(z[take], pos[take]), "amin")
+    hit = torch.nonzero(key < MK.KEY_EMPTY).squeeze(1)
+    zw, win = MK.unpack_key(key[hit])
+    f = entries[win].long() % F
+    rw = rec[f]
+    c0, c1, c2, _ = MK.edge_bary(rw, (hit % W).float(), (hit // W).float())
+    t = torch.stack([c0 / rw[:, 6], c1 / rw[:, 7], c2 / rw[:, 8]], dim=1)
+    ts = (t[:, 0] + t[:, 1] + t[:, 2]).clamp_min(1e-12)
+    zbuf = torch.full((H * W,), float("inf"))
+    face = torch.full((H * W,), -1, dtype=torch.int32)
+    bary = torch.zeros((H * W, 3))
+    zbuf[hit], face[hit], bary[hit] = zw, f.to(torch.int32), t / ts[:, None]
+    return zbuf.reshape(H, W), face.reshape(H, W), bary.reshape(H, W, 3)
+
+
+def assert_bits_equal(got, want):
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype and a.shape == e.shape
+        assert torch.equal(a.contiguous().view(torch.int32),
+                           e.contiguous().view(torch.int32))
+
+
 def test_plain_tie_rule_picks_first_in_run_order():
     """Two identical triangles (faces 0 and 1): the cell's run lists face 1
-    first, so face 1 wins every pixel, not the lower id."""
+    first, so face 1 wins every pixel, not the lower id.  The kernel's
+    (z bits, run position) key gives the same winner and the same bits in
+    both run orders."""
     tri = [2.0, 2.0, 12.0, 3.0, 4.0, 13.0, 1.5, 1.5, 1.5]
     rec = torch.tensor([tri, tri], dtype=torch.float32)
     i32 = lambda x: torch.tensor(x, dtype=torch.int32)  # noqa: E731
     # one 16 px cell (cs 16, ncx 1); entries 1 (face 1) then 0 (face 0)
-    z, face, bary = MK.mesh_fragments_plain(rec, i32([1, 0]), i32([0]),
-                                            i32([0]), i32([2]), 16, 1, 16, 16)
+    args = (i32([0]), i32([0]), i32([2]), 16, 1, 16, 16)
+    z, face, bary = MK.mesh_fragments_plain(rec, i32([1, 0]), *args)
     hit = face >= 0
     assert hit.sum() > 20
     assert (face[hit] == 1).all()
     torch.testing.assert_close(z[hit], torch.full_like(z[hit], 1.5))
     torch.testing.assert_close(bary[hit].sum(-1),
                                torch.ones(int(hit.sum())))
-    z2, face2, _ = MK.mesh_fragments_plain(rec, i32([0, 1]), i32([0]),
-                                           i32([0]), i32([2]), 16, 1, 16, 16)
+    assert_bits_equal(keyed_fragments(rec, i32([1, 0]), *args),
+                      (z, face, bary))
+    z2, face2, bary2 = MK.mesh_fragments_plain(rec, i32([0, 1]), *args)
     assert (face2[hit] == 0).all()
+    assert_bits_equal(keyed_fragments(rec, i32([0, 1]), *args),
+                      (z2, face2, bary2))
+
+
+def test_key_order_is_depth_then_run_position():
+    """pack_key orders as (z, position) lexicographically for positive
+    finite z (1 / max(inv_z, 1e-12) lies in (0, 1e12]), round-trips, and
+    stays below KEY_EMPTY."""
+    rng = np.random.default_rng(5)
+    z = torch.tensor(np.concatenate([
+        10.0 ** rng.uniform(-3, 12, 500), [1e12, 1.5, 1.5, 1e-30]]),
+        dtype=torch.float32)
+    pos = torch.tensor(rng.integers(0, 2 ** 31 - 1, z.shape[0]))
+    key = MK.pack_key(z, pos)
+    assert bool((key < MK.KEY_EMPTY).all())
+    zu, pu = MK.unpack_key(key)
+    assert torch.equal(zu, z) and torch.equal(pu, pos)
+    i, j = torch.meshgrid(torch.arange(z.shape[0]), torch.arange(z.shape[0]),
+                          indexing="ij")
+    lex = (z[i] < z[j]) | ((z[i] == z[j]) & (pos[i] < pos[j]))
+    assert torch.equal(key[i] < key[j], lex)
+
+
+def test_inside_by_signs_is_edge_bary_inside():
+    """The kernel's divide-free inside test equals ``edge_bary``'s on edge
+    values from 1e-45 to 1e38 of either sign, zeros, infinities and NaN,
+    and areas around the 1e-12 cut, subnormal-quotient ones and
+    non-finite ones."""
+    rng = np.random.default_rng(11)
+    n = 200_000
+    def vals(lo, hi):
+        v = rng.choice([-1.0, 1.0], n) * 10.0 ** rng.uniform(lo, hi, n)
+        special = rng.random(n) < 0.05
+        v[special] = rng.choice([0.0, -0.0, np.inf, -np.inf, np.nan,
+                                 1e-45, -1e-45], int(special.sum()))
+        return torch.tensor(v.astype(np.float32))
+    area = vals(-14, 38)
+    area[:1000] = torch.tensor(rng.choice([1e-12, -1e-12, 1.0000001e-12,
+                                           np.inf, -np.inf, np.nan, 0.0],
+                                          1000).astype(np.float32))
+    w = [vals(-45, 38) for _ in range(3)]
+    # edges that make |w / area| straddle 2^-150 (the quotient's underflow)
+    q = 2.0 ** -150 * rng.choice([0.5, 1.0, 1.0000001, 1.5, 2.0], n)
+    w[1] = torch.where(torch.rand(n) < 0.5, -area * torch.tensor(
+        q.astype(np.float32)), w[1])
+    ok = area.abs() > 1e-12
+    d = torch.where(ok, area, torch.ones_like(area))
+    want = ok & (w[0] / d >= 0) & (w[1] / d >= 0) & (w[2] / d >= 0)
+    got = MK.inside_by_signs(area, *w)
+    assert torch.equal(got, want)
+    assert 0.05 < float(want.float().mean()) < 0.5
+
+
+def adversarial_triangles(kind, n, S, rng):
+    """(n, 3, 2) float32 screen triangles inside an S x S image."""
+    if kind == "random":
+        v = rng.uniform(10, S - 10, (n, 1, 2)) + rng.normal(0, 2, (n, 3, 2))
+    elif kind == "wide60":
+        v = rng.uniform(40, S - 40, (n, 1, 2)) + rng.uniform(-30, 30,
+                                                             (n, 3, 2))
+    elif kind == "on_pixel":
+        v = rng.integers(30, S - 30, (n, 1, 2)) + rng.integers(-20, 21,
+                                                               (n, 3, 2))
+    elif kind == "sliver":
+        # a thin triangle along a lattice direction from a pixel centre,
+        # its third vertex off the line by 0-1e-2 px
+        a = rng.integers(20, S - 60, (n, 1, 2)).astype(np.float64)
+        d = (rng.choice([[1, 1], [1, 0], [0, 1], [1, -1], [2, 1], [3, 1]],
+                        n)[:, None, :] * rng.integers(1, 20, (n, 1, 1)))
+        off = (rng.choice([0.0, 1e-6, 1e-5, 1e-4, 1e-3, 1e-2], (n, 1, 1))
+               * rng.normal(size=(n, 1, 2)))
+        v = np.concatenate(
+            [a, a + d, a + d * rng.uniform(0.3, 1.2, (n, 1, 1)) + off], 1)
+    else:                                   # zero_area: collinear
+        a = rng.uniform(10, S - 10, (n, 1, 2))
+        d = rng.uniform(-20, 20, (n, 1, 2))
+        v = np.concatenate([a, a + d, a + 0.5 * d], 1)
+    return v.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "sliver", "zero_area", "wide60",
+                                  "on_pixel"])
+def test_pixel_box_holds_every_inside_pixel(kind):
+    """Every (face, pixel) pair that the plain version's edge test puts
+    inside lies in the face's pixel box, over the whole image.  The sliver
+    family has pairs inside but outside the bbox widened by 1e-3 px: the
+    fixed margin the splat kernels use would drop them."""
+    S = 160
+    v = torch.tensor(adversarial_triangles(kind, 300, S,
+                                           np.random.default_rng(7)))
+    rec = torch.cat([v.reshape(-1, 6), torch.ones(v.shape[0], 3)], 1)
+    X = torch.arange(S, dtype=torch.float32)
+    Xg, Yg = X[None, :].expand(S, S), X[:, None].expand(S, S)
+    inside = MK.edge_bary(rec[:, None, None, :], Xg, Yg)[3]
+    x_lo, x_hi, y_lo, y_hi = (t[:, None, None] for t in MK.pixel_box(rec))
+    box = (Xg >= x_lo) & (Xg <= x_hi) & (Yg >= y_lo) & (Yg <= y_hi)
+    assert not bool((inside & ~box).any())
+    bb = [f(v[..., c], 1)[:, None, None] for c in (0, 1)
+          for f in (torch.amin, torch.amax)]
+    near = ((Xg >= bb[0] - 1e-3) & (Xg <= bb[1] + 1e-3)
+            & (Yg >= bb[2] - 1e-3) & (Yg <= bb[3] + 1e-3))
+    if kind == "zero_area":
+        assert not bool(inside.any())
+    else:
+        assert int(inside.sum()) > 100
+    if kind == "sliver":
+        assert bool((inside & ~near).any())
+    if kind in ("random", "wide60"):
+        # an ordinary face's box is its bbox and one pixel at most beyond
+        assert torch.isfinite(x_lo).all()
+        assert bool((x_lo >= torch.floor(bb[0]) - 1).all())
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_keyed_walk_matches_plain_bit_for_bit(dup):
+    """The kernel's algorithm (box walk, key min) equals the plain version
+    bit for bit on a sphere with 16 px cells plus slivers and 60 px faces,
+    and on the same faces twice over, where every hit is an exact tie that
+    the first copy wins."""
+    v, f = uv_sphere(24, seed=2)
+    _, tcam = cameras(96, 96)
+    faces = torch.tensor(f).long()
+    rec, b = mesh_bins(tcam, torch.tensor(v), faces, 16)
+    extra = adversarial_triangles("sliver", 40, 96, np.random.default_rng(9))
+    wide = adversarial_triangles("wide60", 4, 96, np.random.default_rng(10))
+    tri = torch.tensor(np.concatenate([extra, wide]).reshape(-1, 6))
+    rec = torch.cat([rec, torch.cat([tri, torch.full((tri.shape[0], 3), 2.4)
+                                     ], 1)])
+    if dup:
+        rec = torch.cat([rec, rec])
+    F = rec.shape[0]
+    xs, ys = rec[:, 0:6:2], rec[:, 1:6:2]
+    b = cell_bins(xs.amin(1), ys.amin(1), xs.amax(1), ys.amax(1),
+                  torch.ones(F, dtype=torch.bool), 96, 96, 16)
+    args = (rec, b.entries, b.cell_ids, b.starts, b.counts, b.cs, b.ncx, 96,
+            96)
+    want = MK.mesh_fragments_plain(*args)
+    assert int((want[1] >= 0).sum()) > 1000
+    assert_bits_equal(keyed_fragments(*args), want)
+    if dup:
+        assert int(want[1].max()) < F // 2
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
@@ -208,6 +403,17 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
         MK.mesh_fragments(torch.zeros(4, 8), *(torch.zeros(1, dtype=torch.int32)
                                                for _ in range(4)),
                           8, 1, 8, 8)
+
+
+def test_images_beyond_the_box_slack_are_refused():
+    """The pixel box's 1e-3 px slack covers its own rounding only below
+    MAX_SIDE px a side; a larger image raises before any work."""
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32)  # noqa: E731
+    rec = torch.zeros(1, 9)
+    side = MK.MAX_SIDE + 1
+    with pytest.raises(ValueError, match="px a side"):
+        MK.mesh_fragments(rec, i32([0]), i32([0]), i32([0]), i32([1]), 8, 1,
+                          side, 8)
 
 
 def test_empty_and_hidden_meshes_give_the_fill():
@@ -277,6 +483,19 @@ def test_mesh_kernel_matches_plain_on_the_card():
     assert MK.launches.mesh_raster_launches == n0 + 1
     for a, e in zip(got, MK.mesh_fragments_plain(*args)):
         torch.testing.assert_close(a, e, rtol=0, atol=0)
+    # the faces twice over: every hit an exact tie, won by the first copy,
+    # with the same bits on a second launch
+    f2 = torch.tensor(np.concatenate([f, f]), device="cuda")
+    rec2, b2 = mesh_bins(cam, torch.tensor(v, device="cuda"), f2, 8)
+    args2 = (rec2, b2.entries, b2.cell_ids, b2.starts, b2.counts, b2.cs,
+             b2.ncx, 96, 96)
+    got2 = MK.mesh_fragments(*args2)
+    for a, e in zip(got2, MK.mesh_fragments_plain(*args2)):
+        torch.testing.assert_close(a, e, rtol=0, atol=0)
+    for a, e in zip(got2, MK.mesh_fragments(*args2)):
+        assert torch.equal(a, e)
+    assert int(got2[1].max()) < len(f)
+    assert MK.launches.mesh_raster_launches == n0 + 3
     # a mesh behind the camera has no active cell: nothing is launched
     rec0, b0 = mesh_bins(cam, torch.tensor(v - np.float32([0, 0, 5]),
                                            device="cuda"),
