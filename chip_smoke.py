@@ -8,22 +8,41 @@ Phases:
   2. build: one nvcc per CUDA source, all started together:
      csrc/splat.cu (the splat kernels) and csrc/mesh_raster.cu (the mesh
      rasterizer);
-  3. training path: a 12-frame 512x512 synthetic scene through
-     ``selfreconcode_tpu_torch.cli.train.main`` with configs/config.conf at
-     full width (toy SMPL body, random weights from a seed), --max-epochs 0:
-     skinner build, 1200 IGR iterations, remesh, 4 coarse steps, checkpoint.
-     The splat kernels' launch counters are zeroed right before and read
-     right after; both kernels must have run on that path;
-  4. inference path: ``selfreconcode_tpu_torch.cli.infer.main`` on phase
-     3's checkpoint, 2 frames (template remesh, Phong and def1 renders,
-     maskE, colour solve).  The mesh kernel's counter is zeroed right before
-     and read right after: >= 2 launches per frame; errors.txt must parse
-     with 2 evaluated frames, each maskE finite and in [0, 1];
+  3. training path on the real-body schema: the watertight 6890-vertex
+     synthetic body is written as ``neutral_smpl_with_cocoplus_reg.pkl``
+     (``save_smpl_pickle``) into a directory named by $SMPL_MODEL_DIR; the
+     port's ``make_synthetic_subject`` renders a 12-frame 512x512 subject
+     of it with images, masks and normal maps (one mesh-kernel launch per
+     frame); ``selfreconcode_tpu_torch.cli.train.main`` trains on it with
+     configs/config.conf at full width and no body flag, so the body comes
+     through ``get_smpl`` -> ``load_smpl_pickle`` (random weights from a
+     seed), --max-epochs 0: skinner build, 1200 IGR iterations, remesh, 4
+     coarse steps with the normal loss, checkpoint;
+  3b. the fine stage at 1080x1080: a 4-frame subject of the same body and
+     seed, phase 3's IGR and skinner caches copied into its root (no second
+     IGR), and a conf with the medium stage off and the fine stage from
+     epoch 0, run with --synthetic-body: 4 fine steps (N = 1, 6144 rays,
+     radius 0.0041, octree up to 321x417x225), the CLI's debug dump right
+     after the first;
+  3c. on phase 3b's trainer, 2 steps with rays seeded from rasterized
+     fragments (point_inits=False: one mesh-kernel launch per step) and the
+     three mesh regularizers on, at config.conf's coarse magnitudes made
+     positive (Laplacian 10, edge 10, normal consistency 0.001);
+  4. inference path: ``selfreconcode_tpu_torch.cli.infer.main`` with
+     --synthetic-body on phase 3's checkpoint, 2 frames (template remesh,
+     Phong and def1 renders, maskE against the body's own silhouettes,
+     colour solve); errors.txt must parse with 2 evaluated frames, each
+     maskE finite and in [0, 1].
+     Every path (the subject renders, coarse, fine, fragment steps,
+     inference) runs with all launch counters zeroed right before it and
+     read right after, and must launch each kernel it uses (splat forward
+     and backward in training, the mesh kernel in the renders, the debug
+     dump, fragment seeding and inference); the kernels line sums them;
   5. splat kernels vs plain on the card at shape A (1080x1080 frame, 134k
      points on a body-sized shell, radius 0.0041), shape B (the trained
      template deformed into frame 0 of the 512x512 scene, radius 0.006),
-     shape E (the same template at 1080x1080, focal and principal point
-     scaled by 1080/512, radius 0.0041: what the fine stage feeds them) and
+     shape E (phase 3b's fine-stage template deformed into frame 0 of the
+     1080x1080 subject, radius 0.0041: what the fine stage feeds them) and
      shape R (50k splats each at distance r from a pixel centre, where the
      backward's coefficient jumps: the kernels must round w as the plain
      version does), and the dense-cell forms at shape B's bins laid out
@@ -31,9 +50,14 @@ Phases:
   6. mesh kernel vs plain on the card at shape C (phase 4's template, the
      remesh of the trained SDF, deformed into frame 0 at 512x512 as the
      geometry pass deforms it), shape C-dup (C's faces twice over: every
-     hit is an exact depth tie, which the first copy must win) and shape D
-     (C at 1080x1080, focal and principal point scaled by 1080/512).  Each
-     launch runs twice and must give the same bits;
+     hit is an exact depth tie, which the first copy must win), shape D
+     (C at 1080x1080, focal and principal point scaled by 1080/512), shape
+     F (phase 3b's fine-stage template deformed into frame 0 at 1080x1080,
+     binned with the stage's raster footprint: what fragment seeding and
+     the debug dump rasterize), shape F-32 (F in the largest cells, 32 px)
+     and shape S (frame 0 of phase 3b's subject: the subdivided render
+     mesh at the subject's own footprint, 16-24 px cells).  Each launch
+     runs twice and must give the same bits;
   7. the kernels' JSON line, then the device JSON line last.
 
 Each kernel is timed four ways at each shape: ``device_us``, its own time
@@ -57,10 +81,13 @@ is present; there is no CPU fallback.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
+import os
 import os.path as osp
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -509,17 +536,18 @@ def mesh_work(rec, entries, cell_ids, counts, cs, ncx, H, W, chunk=1 << 22):
     return work
 
 
-def compare_mesh(label, cam, verts, faces, first_faces=None):
-    """The mesh kernel vs its plain version at one shape.  first_faces = F
-    for a mesh whose faces are F faces twice over: every hit must then name
-    a face < F (the first in run order wins the exact depth tie)."""
+def compare_mesh(label, cam, verts, faces, first_faces=None, footprint=8):
+    """The mesh kernel vs its plain version at one shape, binned with the
+    footprint its caller passes (which picks the cell size).  first_faces =
+    F for a mesh whose faces are F faces twice over: every hit must then
+    name a face < F (the first in run order wins the exact depth tie)."""
     import torch
     from selfreconcode_tpu_torch.ops import mesh_kernels as MK
     from selfreconcode_tpu_torch.ops.rasterize import mesh_bins
 
     H, W = cam.H, cam.W
     with torch.no_grad():
-        rec, b = mesh_bins(cam, verts, faces, 8)
+        rec, b = mesh_bins(cam, verts, faces, footprint)
         args = (rec, b.entries, b.cell_ids, b.starts, b.counts, b.cs, b.ncx,
                 H, W)
         zk, fk, bk = MK.mesh_fragments(*args)
@@ -551,7 +579,8 @@ def compare_mesh(label, cam, verts, faces, first_faces=None):
             + 20 * cell_pixels(b.cell_ids, b.cs, b.ncx, H, W))
         call = MK.raster_call(*args)
         out = {
-            "shape": label, "faces": int(faces.shape[0]), "cell_px": b.cs,
+            "shape": label, "faces": int(faces.shape[0]),
+            "footprint": int(footprint), "cell_px": b.cs,
             "max_face_px": float(ext.max()),
             "entries": M, "active_cells": A,
             "max_occupancy": int(b.counts.max()),
@@ -583,79 +612,220 @@ def compare_mesh(label, cam, verts, faces, first_faces=None):
     return out
 
 
-def main_path(workdir):
-    """Drive the port's training CLI once; returns (trainer, seconds)."""
-    import numpy as np
+def counted(fn, *args, **kw):
+    """fn(*args, **kw) with every kernel's launch counter zeroed right
+    before and read right after; returns (result, {kernel: launches})."""
     import torch
-    from selfreconcode_tpu_torch.cli import train as cli
-    from selfreconcode_tpu_torch.data.dataset import make_synthetic_scene
+    from selfreconcode_tpu_torch.ops import mesh_kernels as MK
     from selfreconcode_tpu_torch.ops import splat_kernels as SK
-
-    scene = osp.join(workdir, "scene")
-    make_synthetic_scene(scene, n_frames=12, H=512, W=512)
-    argv = ["--conf", osp.join(ROOT, "configs", "config.conf"),
-            "--data", scene, "--save-folder", "rec", "--toy-smpl",
-            "--max-epochs", "0", "--device", "cuda"]
     SK.launches.reset()
-    t0 = time.perf_counter()
-    trainer = cli.main(argv)
+    MK.launches.reset()
+    out = fn(*args, **kw)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    fwd, bwd = SK.launches.splat_fwd_launches, SK.launches.splat_bwd_launches
+    sk = SK.launches
+    return out, {"mesh_raster": MK.launches.mesh_raster_launches,
+                 "splat_fwd_cells": sk.splat_fwd_cells_launches,
+                 "splat_fwd": sk.splat_fwd_launches,
+                 "splat_bwd": sk.splat_bwd_launches,
+                 "splat_bwd_cells": sk.splat_bwd_cells_launches}
 
-    hist = trainer.history
-    n_steps = len(hist)
-    P = trainer.rays_per_step()
+
+def need_launches(path, launched, **least):
+    """Fail unless each named kernel launched at least so often."""
+    print(f"  launches on the {path} path: {launched}", flush=True)
+    short = {k: (launched[k], n) for k, n in least.items() if launched[k] < n}
+    if short:
+        raise AssertionError(f"{path}: kernels launched fewer times than "
+                             f"the path needs, (launched, needed): {short}")
+
+
+def body_pickle(workdir):
+    """The default synthetic body in the SMPL asset schema, where get_smpl
+    finds it ($SMPL_MODEL_DIR)."""
+    from selfreconcode_tpu_torch.models.synthetic_body import (
+        save_smpl_pickle, synthetic_body_model)
+    assets = osp.join(workdir, "assets")
+    os.makedirs(assets)
+    save_smpl_pickle(synthetic_body_model(),
+                     osp.join(assets, "neutral_smpl_with_cocoplus_reg.pkl"))
+    os.environ["SMPL_MODEL_DIR"] = assets
+
+
+def subject(root, n_frames, size, paths):
+    """Render the subject on the card; records the path's launches."""
+    from selfreconcode_tpu_torch.data.synthetic_subject import \
+        make_synthetic_subject
+    t0 = time.perf_counter()
+    _, launched = counted(make_synthetic_subject, root, n_frames=n_frames,
+                          H=size, W=size, verbose=False, device="cuda")
+    dt = time.perf_counter() - t0
+    print(f"  subject {size}x{size}: {n_frames} frames in {dt:.3f} s "
+          f"({dt / n_frames:.4f} s/frame, PNG writes included)", flush=True)
+    need_launches(f"subject {size}", launched, mesh_raster=n_frames)
+    paths[f"subject {size}"] = launched
+
+
+def check_steps(hist, P, n_steps, what):
     losses = [h["loss"] for h in hist]
-    print(f"  steps {n_steps}; losses {losses}", flush=True)
-    print(f"  def_loss at step 0: {hist[0].get('def_loss')}; inv_ok "
-          f"{[int(h['inv_ok']) for h in hist]} of P={P}; ray_converged "
-          f"{[int(h['ray_converged']) for h in hist]}", flush=True)
-    print(f"  launches on the main path: splat_fwd {fwd}, splat_bwd {bwd}",
+    print(f"  {what}: steps {len(hist)}; losses {losses}", flush=True)
+    print(f"  inv_ok {[int(h['inv_ok']) for h in hist]} of P={P}; "
+          f"ray_converged {[int(h['ray_converged']) for h in hist]}",
           flush=True)
+    if len(hist) != n_steps:
+        raise AssertionError(f"{what}: expected {n_steps} steps, ran "
+                             f"{len(hist)}")
+    bad = [h for h in hist if not all(math.isfinite(v) for v in h.values())]
+    if bad:
+        raise AssertionError(f"{what}: non-finite info {bad[0]}")
+    if any(int(h["inv_ok"]) != P for h in hist):
+        raise AssertionError(f"{what}: inv_ok != P on some step")
+
+
+def print_seconds(trainer, what, wall):
     times = trainer.timings
-    print(f"  seconds: skinner build {times['skinner']:.3f}, IGR "
-          f"{times['igr']:.3f}, remesh {times['remesh']:.3f}, mean step "
-          f"{statistics.mean(times['steps']):.3f} (steps "
+    print(f"  {what} seconds: skinner build {times['skinner']:.3f}, IGR "
+          f"{times['igr']:.3f}, last remesh {times['remesh']:.3f}, mean "
+          f"step {statistics.mean(times['steps']):.3f} (steps "
           f"{[round(t, 3) for t in times['steps']]}), whole run {wall:.1f}",
           flush=True)
-    ckpt = osp.join(scene, "rec", "latest.pt")
-    if n_steps != 4:
-        raise AssertionError(f"expected 4 coarse steps, ran {n_steps}")
-    if not all(np.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
+
+
+def main_path(workdir, paths):
+    """Phase 3: render the subject, drive the train CLI with no body flag
+    (the pickle through get_smpl); returns the trainer."""
+    import torch
+    from selfreconcode_tpu_torch.cli import train as cli
+
+    body_pickle(workdir)
+    scene = osp.join(workdir, "scene")
+    subject(scene, 12, 512, paths)
+    argv = ["--conf", osp.join(ROOT, "configs", "config.conf"),
+            "--data", scene, "--save-folder", "rec", "--max-epochs", "0",
+            "--device", "cuda"]
+    t0 = time.perf_counter()
+    trainer, launched = counted(cli.main, argv)
+    wall = time.perf_counter() - t0
+    hist = trainer.history
+    print(f"  body {trainer.body_vs.shape[0]} vertices through "
+          f"$SMPL_MODEL_DIR; template {trainer.tmp.verts.shape[0]} verts, "
+          f"{trainer.tmp.faces.shape[0]} faces", flush=True)
+    check_steps(hist, trainer.rays_per_step(), 4, "coarse")
+    print(f"  def_loss at step 0: {hist[0].get('def_loss')}; normal_loss "
+          f"{[h.get('normal_loss') for h in hist]}", flush=True)
+    print_seconds(trainer, "coarse", wall)
+    if trainer.body_vs.shape[0] != 6890:
+        raise AssertionError("the body did not come from the pickle")
     if abs(hist[0]["def_loss"]) > 1e-4:
         raise AssertionError(f"def_loss at step 0 is {hist[0]['def_loss']}")
-    if any(int(h["inv_ok"]) != P for h in hist):
-        raise AssertionError("inv_ok != P on some step")
-    need = 3 * n_steps
-    if fwd < need or bwd < need:
-        raise AssertionError(f"kernels launched fwd={fwd}, bwd={bwd} times; "
-                             f"the main path needs >= {need} each")
-    if not osp.isfile(ckpt):
-        raise AssertionError(f"no checkpoint at {ckpt}")
-    return trainer, {"splat_fwd": fwd, "splat_bwd": bwd}
+    if not all("normal_loss" in h for h in hist):
+        raise AssertionError("no normal loss: the subject's normal maps "
+                             "were not read")
+    need_launches("coarse", launched, splat_fwd=12, splat_bwd=12)
+    paths["coarse"] = launched
+    if not osp.isfile(osp.join(scene, "rec", "latest.pt")):
+        raise AssertionError("no checkpoint")
+    return trainer
 
 
-def infer_path(workdir):
-    """Drive the port's infer CLI on phase 3's checkpoint; returns (the mesh
-    kernel's launch count, the inference template deformed into frame 0 as
-    the geometry pass deforms it, its faces, the camera)."""
+def fine_path(workdir, paths):
+    """Phase 3b: the fine stage at 1080^2 through the train CLI; returns
+    the trainer."""
+    from selfreconcode_tpu_torch.cli import train as cli
+
+    root = osp.join(workdir, "fine")
+    subject(root, 4, 1080, paths)
+    for cache in ("initial_sdf_idr_6_1_torch.pt",
+                  "initial_skinner_1_torch.pt"):
+        shutil.copyfile(osp.join(workdir, "scene", cache),
+                        osp.join(root, cache))
+    conf = open(osp.join(ROOT, "configs", "config.conf")).read()
+    for a, b in (("start_epoch = 6", "start_epoch = -1"),
+                 ("start_epoch = 12", "start_epoch = 0")):
+        if conf.count(a) != 1:
+            raise AssertionError(f"config.conf has no single '{a}'")
+        conf = conf.replace(a, b)
+    conf_path = osp.join(workdir, "fine.conf")
+    with open(conf_path, "w") as f:
+        f.write(conf)
+    t0 = time.perf_counter()
+    trainer, launched = counted(cli.main, [
+        "--conf", conf_path, "--data", root, "--save-folder", "rec",
+        "--synthetic-body", "--max-epochs", "0", "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    cfg = trainer.stage_cfg
+    tmp = trainer.tmp
+    print(f"  stage {cfg.name}: N={cfg.N}, {trainer.rays_per_step()} rays, "
+          f"radius {cfg.radius}, octree {cfg.resolutions[-1]}, raster "
+          f"footprint {cfg.raster_footprint}; template {tmp.verts.shape[0]} "
+          f"verts, {tmp.faces.shape[0]} faces, "
+          f"{tmp.topo.edges.shape[0]} edges", flush=True)
+    check_steps(trainer.history, trainer.rays_per_step(), 4, "fine")
+    print_seconds(trainer, "fine", wall)
+    if (cfg.name != "fine" or cfg.N != 1
+            or cfg.resolutions != tuple(map(tuple, cli.RESOLUTIONS["fine"]))):
+        raise AssertionError(f"not the fine stage: {cfg}")
+    if trainer.timings["igr"] != 0.0:
+        raise AssertionError("IGR ran again: the copied cache was not used")
+    debug = osp.join(root, "rec", "debug")
+    want = {"tmp.ply", "def_0.ply", "def1_0.ply", "m0.png", "gm0.png",
+            "rgb0.png", "n0.png"}
+    have = set(os.listdir(debug))
+    print(f"  debug dump: {sorted(have)}", flush=True)
+    if have != want:
+        raise AssertionError(f"debug dump {sorted(have)} != {sorted(want)}")
+    need_launches("fine", launched, splat_fwd=5, splat_bwd=4, mesh_raster=1)
+    paths["fine"] = launched
+    return trainer
+
+
+def fragment_path(trainer, paths):
+    """Phase 3c: 2 steps seeded from fragments with the three mesh
+    regularizers on."""
+    import numpy as np
+
+    ray_fine = [int(h["ray_converged"]) for h in trainer.history]
+    w = dataclasses.replace(trainer.stage_cfg.weights, laplacian_weight=10.0,
+                            edge_weight=10.0, norm_weight=0.001)
+    trainer.override_stage(point_inits=False, weights=w)
+    ds = trainer.dataset
+
+    def steps():
+        out = []
+        for fid in range(2):
+            fids = np.array([fid])
+            out.append(trainer.train_step(fids, ds.batch_raw(fids), 1e-4))
+        return out
+
+    t0 = time.perf_counter()
+    hist, launched = counted(steps)
+    wall = time.perf_counter() - t0
+    check_steps(hist, trainer.rays_per_step(), 2, "fragment-seeded")
+    print(f"  ray_converged: fragment-seeded "
+          f"{[int(h['ray_converged']) for h in hist]}, vertex-seeded (3b) "
+          f"{ray_fine}; regularizers "
+          f"{[{k: h[k] for k in ('pc_lap_loss', 'pc_edge_loss', 'pc_norm_loss')} for h in hist]}; "
+          f"{wall:.3f} s for 2 steps", flush=True)
+    need_launches("fragment-seeded", launched, mesh_raster=2, splat_fwd=2,
+                  splat_bwd=2)
+    paths["fragments"] = launched
+
+
+def infer_path(workdir, paths):
+    """Phase 4: drive the port's infer CLI with --synthetic-body on phase
+    3's checkpoint; returns (the inference template deformed into frame 0
+    as the geometry pass deforms it, its faces, the camera)."""
     import numpy as np
     import torch
     from selfreconcode_tpu_torch.cli import infer as icli
     from selfreconcode_tpu_torch.models.deformer import deformer_apply
-    from selfreconcode_tpu_torch.ops import mesh_kernels as MK
 
     rec = osp.join(workdir, "scene", "rec")
     n_frames = 2
-    MK.launches.reset()
     t0 = time.perf_counter()
-    summary = icli.main(["--rec-root", rec, "--toy-smpl", "--frames",
-                         str(n_frames), "--nV", "--device", "cuda"])
-    torch.cuda.synchronize()
+    summary, launched = counted(icli.main, [
+        "--rec-root", rec, "--synthetic-body", "--frames", str(n_frames),
+        "--nV", "--device", "cuda"])
     wall = time.perf_counter() - t0
-    launches = MK.launches.mesh_raster_launches
     print(f"  template: {summary['template_verts']} verts, "
           f"{summary['template_faces']} faces, remesh "
           f"{summary['template_s']:.3f} s", flush=True)
@@ -663,9 +833,9 @@ def infer_path(workdir):
         print(f"  frame {fr['fid']}: geometry {fr['geom_s']:.3f} s, colour "
               f"{fr['color_s']:.3f} s, hit pixels {fr['hit_pixels']}, "
               f"converged {fr['converged_pixels']}, maskE "
-              f"{fr['mask_err']:.6f}", flush=True)
-    print(f"  mesh kernel launches {launches}; whole CLI run {wall:.1f} s",
-          flush=True)
+              f"{fr['mask_err']:.6f} (against the body's own silhouettes)",
+              flush=True)
+    print(f"  whole CLI run {wall:.1f} s", flush=True)
 
     lines = open(osp.join(rec, "errors.txt")).read().splitlines()
     head = re.fullmatch(r"maskE, mean: (\S+), max: (\S+), min: (\S+)",
@@ -678,9 +848,8 @@ def infer_path(workdir):
                              f"evaluated: {lines[:4]}")
     if not all(math.isfinite(e) and 0.0 <= e <= 1.0 for e in done):
         raise AssertionError(f"maskE out of [0, 1]: {done}")
-    if launches < 2 * n_frames:
-        raise AssertionError(f"mesh kernel launched {launches} times; the "
-                             f"inference path needs >= {2 * n_frames}")
+    need_launches("inference", launched, mesh_raster=2 * n_frames)
+    paths["inference"] = launched
     if not osp.isfile(osp.join(rec, "colors", "0.png")):
         raise AssertionError("no colors/0.png")
     if not all(fr["hit_pixels"] > 0 for fr in summary["frames"]):
@@ -693,12 +862,12 @@ def infer_path(workdir):
             torch.zeros(nv, dtype=torch.long, device=tr.device),
             tr.bank["dcond"][:1], tr.bank["poses"][:1], tr.bank["trans"][:1],
             1.0)
-    return launches, verts0, tr.tmp.faces, tr.camera()
+    return verts0, tr.tmp.faces, tr.camera()
 
 
 def profile_step(trainer):
-    """One more coarse step under torch.profiler: prints the device busy
-    share and the top 40 ops by device time."""
+    """One more step of the trainer's stage under torch.profiler: prints
+    the device busy share and the top 40 ops by device time."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -720,7 +889,8 @@ def profile_step(trainer):
     splat_ms = sum(e.self_device_time_total for e in avg
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and "splat" in e.key) / 1e3
-    print(f"  profiled step: wall {wall * 1e3:.3f} ms, device busy "
+    print(f"  profiled {trainer.stage_cfg.name} step: wall "
+          f"{wall * 1e3:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / (wall * 1e3):.1f}%), splat "
           f"kernels {splat_ms:.3f} ms ({100 * splat_ms / busy_ms:.2f}% of "
           f"device time)", flush=True)
@@ -731,11 +901,14 @@ def profile_step(trainer):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after phase 3, profile one more training step")
+                    help="after phases 3 and 3b, profile one more coarse "
+                         "and one more fine step")
     args = ap.parse_args(argv)
 
     card = device_phase()
     import torch
+    from selfreconcode_tpu_torch.data.synthetic_subject import (
+        DISTANCE, render_mesh, subject_rig, subject_trajectory)
     from selfreconcode_tpu_torch.ops import mesh_kernels as MK
     from selfreconcode_tpu_torch.ops import splat_kernels as SK
     from selfreconcode_tpu_torch.render.camera import Camera, make_camera
@@ -750,24 +923,37 @@ def main(argv=None):
              f"{time.perf_counter() - t0:.2f} s (one nvcc each, together)")
 
     dev = torch.device("cuda")
+    paths = {}
     with tempfile.TemporaryDirectory() as work:
-        phase(3, "training path: cli.train.main on a 12-frame 512x512 scene")
-        trainer, launched = main_path(work)
+        phase(3, "training path: a 12-frame 512x512 subject of the 6890-"
+                 "vertex body, cli.train.main with the body's pickle")
+        trainer = main_path(work, paths)
         if args.profile:
             profile_step(trainer)
         with torch.no_grad():
             pts_b = trainer.deformed_template([0])[0]
         cam_b = trainer.camera()
         del trainer
-        phase(4, "inference path: cli.infer.main on the phase-3 checkpoint")
-        launched["mesh_raster"], verts_c, faces, cam_c = infer_path(work)
-    # the dense splat forms have no caller: their counts, zeroed before
-    # phase 3 and read after phase 4, cover both main paths
-    launched["splat_fwd_cells"] = SK.launches.splat_fwd_cells_launches
-    launched["splat_bwd_cells"] = SK.launches.splat_bwd_cells_launches
-    print(f"  dense splat forms launched on the main paths: fwd "
-          f"{launched['splat_fwd_cells']}, bwd {launched['splat_bwd_cells']}",
-          flush=True)
+        phase("3b", "fine stage: a 4-frame 1080x1080 subject, 4 fine steps "
+                    "and the debug dump")
+        fine = fine_path(work, paths)
+        if args.profile:
+            profile_step(fine)
+        with torch.no_grad():
+            pts_e = fine.deformed_template([0])[0]
+        cam_e, radius_e = fine.camera(), fine.stage_cfg.radius
+        faces_f, footprint_f = fine.tmp.faces, fine.stage_cfg.raster_footprint
+        phase("3c", "2 fine steps seeded from fragments, mesh regularizers "
+                    "on")
+        fragment_path(fine, paths)
+        del fine
+        phase(4, "inference path: cli.infer.main --synthetic-body on the "
+                 "phase-3 checkpoint")
+        verts_c, faces, cam_c = infer_path(work, paths)
+    launched = {k: sum(p[k] for p in paths.values()) for k in
+                next(iter(paths.values()))}
+    print(f"  launches per path: {json.dumps(paths)}; in all {launched} "
+          f"(the dense splat forms have no caller)", flush=True)
 
     phase(5, f"splat kernels vs plain on the card ({card})")
     H = W = 1080
@@ -779,12 +965,9 @@ def main(argv=None):
                             0.0041, 1)
     label_b = f"B 512x512 {pts_b.shape[0]} pts r=0.006"
     res_b = compare_kernels(label_b, cam_b, pts_b, 0.006, 2)
-    # E: what the fine stage feeds the kernels, B's template at 1080^2
-    k = 1080 / cam_b.W
-    cam_e = Camera(focal=cam_b.focal * k, principal=cam_b.principal * k,
-                   R=cam_b.R, T=cam_b.T, H=1080, W=1080)
-    res_e = compare_kernels(f"E 1080x1080 {pts_b.shape[0]} pts r=0.0041",
-                            cam_e, pts_b, 0.0041, 4)
+    # E: what the fine stage feeds the kernels
+    res_e = compare_kernels(f"E 1080x1080 {pts_e.shape[0]} pts "
+                            f"r={radius_e}", cam_e, pts_e, radius_e, 4)
     res_bd = compare_dense(label_b + " dense", cam_b, pts_b, 0.006, 3)
     # R: 50k splats on circles of radius r around pixel centres (w ~ 0)
     rim = torch.tensor(rim_points(50000, 0.006 * cam_b.W / 2, cam_b.W, 6),
@@ -804,6 +987,26 @@ def main(argv=None):
                    R=cam_c.R, T=cam_c.T, H=1080, W=1080)
     res_d = compare_mesh(f"D 1080x1080 {faces.shape[0]} faces", cam_d,
                          verts_c, faces)
+    # F: what fragment seeding and the debug dump rasterize in the fine
+    # stage, at the stage's footprint and at the largest cell (32 px, 1024
+    # keys a cell), which a footprint grown with the sweep box reaches
+    res_f = compare_mesh(f"F 1080x1080 {faces_f.shape[0]} faces fp "
+                         f"{footprint_f}", cam_e, pts_e, faces_f,
+                         footprint=footprint_f)
+    res_f32 = compare_mesh(f"F-32 1080x1080 {faces_f.shape[0]} faces fp 32",
+                           cam_e, pts_e, faces_f, footprint=32)
+    # S: frame 0 of phase 3b's subject, the render mesh at its footprint
+    rig = subject_rig(1080, 1080, device="cuda")
+    poses, trans = subject_trajectory(4)
+    with torch.no_grad():
+        verts_s = render_mesh(rig, torch.as_tensor(poses[0], device=dev),
+                              torch.as_tensor(trans[0] + DISTANCE,
+                                              device=dev))
+    res_s = compare_mesh(f"S 1080x1080 {rig.faces.shape[0]} faces fp "
+                         f"{rig.footprint}", rig.cam, verts_s, rig.faces,
+                         footprint=rig.footprint)
+    mesh = {"C": res_c, "C-dup": res_cd, "D": res_d, "F": res_f,
+            "F-32": res_f32, "S": res_s}
 
     splat_src = "selfreconcode_tpu_torch/csrc/splat.cu"
     dense_note = "no caller in either package; launched by chip_smoke.py only"
@@ -812,10 +1015,9 @@ def main(argv=None):
         kernel_row("mesh_raster",
                    "selfreconcode_tpu_torch/csrc/mesh_raster.cu", 116,
                    launched["mesh_raster"],
-                   max(r[k] for r in (res_c, res_cd, res_d)
+                   max(r[k] for r in mesh.values()
                        for k in ("z_max_abs_err", "bary_max_abs_err")),
-                   {"C": timings(res_c), "C-dup": timings(res_cd),
-                    "D": timings(res_d)}, "D"),
+                   {n: timings(r) for n, r in mesh.items()}, "D"),
         kernel_row("splat_fwd_cells", splat_src, 176,
                    launched["splat_fwd_cells"], res_bd["fwd_max_abs_err"],
                    {"B-dense": timings(res_bd, "fwd_")}, "B-dense",

@@ -1,7 +1,7 @@
 """Inference CLI of the port (flags of ``selfreconcode_tpu/cli/infer.py``).
 
     python -m selfreconcode_tpu_torch.cli.infer --rec-root <scene>/rec \\
-        --toy-smpl --frames 2 --device cuda
+        --frames 2 --device cuda
 
 Reads ``<rec-root>/latest.pt`` (the port's checkpoint) and the scene one
 level up, and writes what the reference's infer.py writes: ``tmp.ply``
@@ -10,7 +10,8 @@ vertices), ``meshs/%d.png`` (Phong render), ``def1meshs/%d.png``
 (translator-only render), ``colors/%d.png`` (colour net), an mp4 per image
 folder unless ``--nV``, and ``errors.txt`` with the per-frame mask-IoU
 error (rewritten every 20 frames, so an interrupted run leaves valid
-statistics).  Runs on one CUDA device and never falls back to the CPU;
+statistics).  The body flags are the train CLI's (``cli/train.py::
+load_body``).  Runs on one CUDA device and never falls back to the CPU;
 ``--device cpu`` is for tests.
 """
 from __future__ import annotations
@@ -41,15 +42,14 @@ def parse_args(argv=None):
     p.add_argument("--toy-smpl", action="store_true",
                    help="use the synthetic SMPL stand-in (no pkl assets)")
     p.add_argument("--synthetic-body", action="store_true",
-                   help="not ported yet")
+                   help="use the watertight 6890-vertex SMPL-schema body "
+                        "(models/synthetic_body.py)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda)")
     args = p.parse_args(argv)
     if args.gpu_ids is not None:
         p.error("--gpu-ids is not supported; choose the card with --device "
                 "(e.g. --device cuda:1)")
-    if args.synthetic_body:
-        p.error("--synthetic-body is not ported yet; use --toy-smpl")
     if args.nV and args.nI:
         p.error("--nV and --nI together leave nothing to write")
     return args
@@ -69,7 +69,7 @@ def main(argv=None, resolutions=None):
     from ..engine.inference import make_infer_fn
     from ..engine.trainer import Trainer
     from ..utils.meshops import write_mesh
-    from .train import RESOLUTIONS
+    from .train import RESOLUTIONS, load_body
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -84,13 +84,9 @@ def main(argv=None, resolutions=None):
     conds = {"deformer": conf.get_int("mlp_deformer.condlen"),
              "renderer": conf.get_int("render_net.condlen")}
     dataset = SceneDataset(data_root, conds)
-    if not args.toy_smpl:
-        raise NotImplementedError("the SMPL pickle loader is not ported yet; "
-                                  "pass --toy-smpl")
-    from ..models.smpl import toy_smpl_model
     res_sched = resolutions or RESOLUTIONS
-    trainer = Trainer(dataset, toy_smpl_model(), conf, res_sched,
-                      data_root=data_root, device=device)
+    trainer = Trainer(dataset, load_body(args, dataset.gender), conf,
+                      res_sched, data_root=data_root, device=device)
     ckpt = osp.join(rec_root, "latest.pt")
     print("load model:", ckpt, flush=True)
     load_checkpoint(ckpt, trainer)

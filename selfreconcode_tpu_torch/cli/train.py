@@ -1,12 +1,16 @@
 """Training CLI of the port (flags of ``selfreconcode_tpu/cli/train.py``).
 
     python -m selfreconcode_tpu_torch.cli.train --conf configs/config.conf \\
-        --data <scene> --save-folder rec --toy-smpl --max-epochs 0 \\
-        --device cuda
+        --data <scene> --save-folder rec --max-epochs 0 --device cuda
 
-Runs on one CUDA device and never falls back to the CPU; ``--device cpu``
-is for tests.  TF32 is switched off for matmuls and cuDNN at start, so
-float32 stays float32.
+The body is the `{gender}_smpl_with_cocoplus_reg.pkl` of the scene's gender
+(``models/smpl.py::get_smpl``: models/assets/, then $SMPL_MODEL_DIR), or
+the watertight 6890-vertex stand-in with --synthetic-body, or the toy body
+with --toy-smpl.  Writes the checkpoints and, once per fine-stage epoch, a
+debug dump (``Trainer.save_debug``) into <data>/<save-folder>.  Runs on one
+CUDA device and never falls back to the CPU; ``--device cpu`` is for tests.
+TF32 is switched off for matmuls and cuDNN at start, so float32 stays
+float32.
 """
 from __future__ import annotations
 
@@ -45,7 +49,8 @@ def parse_args(argv=None):
     p.add_argument("--toy-smpl", action="store_true",
                    help="use the synthetic SMPL stand-in (no pkl assets)")
     p.add_argument("--synthetic-body", action="store_true",
-                   help="not ported yet")
+                   help="use the watertight 6890-vertex SMPL-schema body "
+                        "(models/synthetic_body.py)")
     p.add_argument("--max-epochs", type=int, default=None,
                    help="cap epochs (debug)")
     p.add_argument("--mesh", default=None, help="not supported (one GPU)")
@@ -58,16 +63,27 @@ def parse_args(argv=None):
     if args.mesh is not None:
         p.error("--mesh (data parallel) is not ported yet; the port trains "
                 "on one GPU")
-    if args.synthetic_body:
-        p.error("--synthetic-body is not ported yet; use --toy-smpl")
     return args
+
+
+def load_body(args, gender: str):
+    """The SMPL model the flags ask for; without a body flag, the pickle
+    of this gender (FileNotFoundError when there is none)."""
+    if args.synthetic_body:
+        from ..models.synthetic_body import synthetic_body_model
+        return synthetic_body_model()
+    if args.toy_smpl:
+        from ..models.smpl import toy_smpl_model
+        return toy_smpl_model()
+    from ..models.smpl import get_smpl
+    return get_smpl(gender)
 
 
 def main(argv=None, resolutions=None, skinner_res=None, tune=None):
     """CLI entry; returns the Trainer.  The keyword extras are test
     injection points: `resolutions` replaces the octree schedule,
     `skinner_res` the LBS volume size, and `tune(trainer)` runs right before
-    the epoch loop."""
+    the epoch loop and after each stage switch."""
     args = parse_args(argv)
     import torch
     from ..config import parse_file
@@ -85,7 +101,8 @@ def main(argv=None, resolutions=None, skinner_res=None, tune=None):
     conf = parse_file(args.conf)
     data_root = args.data
     save_root = osp.join(data_root, args.save_folder)
-    os.makedirs(save_root, exist_ok=True)
+    debug_root = osp.join(save_root, "debug")
+    os.makedirs(debug_root, exist_ok=True)
     shutil.copyfile(args.conf, osp.join(save_root, "config.conf"))
 
     conds = {"deformer": conf.get_int("mlp_deformer.condlen"),
@@ -93,11 +110,7 @@ def main(argv=None, resolutions=None, skinner_res=None, tune=None):
     dataset = SceneDataset(data_root, conds)
     print(f"scene data use {dataset.gender} smpl; {dataset.frame_num} frames "
           f"{dataset.H}x{dataset.W}; device {device}", flush=True)
-    if not args.toy_smpl:
-        raise NotImplementedError("the SMPL pickle loader is not ported yet; "
-                                  "pass --toy-smpl")
-    from ..models.smpl import toy_smpl_model
-    smpl = toy_smpl_model()
+    smpl = load_body(args, dataset.gender)
 
     res_sched = resolutions or RESOLUTIONS
     kw = {"skinner_res": skinner_res} if skinner_res else {}
@@ -122,6 +135,14 @@ def main(argv=None, resolutions=None, skinner_res=None, tune=None):
         info = trainer.initialize_sdf(abs(conf.get_int("train.initial_iters")),
                                       cache_path=cache)
         print("initial sdf:", info, flush=True)
+        if not info.get("cached"):
+            # the initial iso-surface, for inspection (train.py:129-132)
+            from ..utils.meshops import write_mesh
+            mc = trainer.discretize_sdf(0.0, resolutions=res_sched["coarse"])
+            write_mesh(osp.join(data_root, f"initial_sdf_idr_{multires}_"
+                                           f"{pose_type}_torch.ply"),
+                       mc.verts, mc.faces)
+            print(f"initial mesh: {mc.verts.shape[0]} verts", flush=True)
 
     if trainer.stage_cfg is None:
         trainer.set_stage("coarse")
@@ -137,23 +158,37 @@ def main(argv=None, resolutions=None, skinner_res=None, tune=None):
     medium_at = conf.get_int("train.medium.start_epoch")
     fine_at = conf.get_int("train.fine.start_epoch")
     sampler = RandomSampler(dataset.frame_num, 1, conf.get_bool("train.shuffle"))
+    in_fine = False
 
     for epoch in range(start_epoch, nepoch + 1):
         if medium_at >= 0 and epoch == medium_at:
             save_checkpoint(osp.join(save_root, "coarse.pt"), trainer, epoch)
             trainer.set_stage("medium")
             print("enable medium hierarchical", flush=True)
+            if tune is not None:
+                tune(trainer)
         if fine_at >= 0 and epoch == fine_at:
             save_checkpoint(osp.join(save_root, "medium.pt"), trainer, epoch)
             trainer.set_stage("fine")
+            in_fine = True
             print("enable fine hierarchical", flush=True)
+            if tune is not None:
+                tune(trainer)
         lr = base_lr * (factor ** sum(1 for m in milestones if epoch >= m))
         t_epoch = time.time()
+        # one debug dump per fine epoch, after the step that follows a
+        # remesh (the reference arms `draw` once per epoch and save_debug
+        # disarms it: train.py:186-187, network.py:447)
+        drew = not in_fine
         for di, (fids, batch) in enumerate(
                 batch_iterator(dataset, sampler, trainer.stage_cfg.N)):
             t0 = time.time()
             info = trainer.train_step(np.asarray(fids), batch, lr)
             report(trainer, epoch, di, info, time.time() - t0)
+            if (not drew and trainer.forward_time
+                    % trainer.stage_cfg.remesh_intersect == 1):
+                trainer.save_debug(debug_root, np.asarray(fids), batch)
+                drew = True
         print(f"epoch {epoch} took {time.time() - t_epoch:.1f}s", flush=True)
         save_checkpoint(osp.join(save_root, "latest.pt"), trainer, epoch + 1)
     print("training done.", flush=True)

@@ -6,7 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .trainer import Template
+from .trainer import make_template
 
 
 def save_checkpoint(path: str, trainer, epoch: int):
@@ -45,7 +45,7 @@ def load_checkpoint(path: str, trainer, sdf_state=None) -> int:
     if z["stage"]:
         trainer.set_stage(z["stage"])
     if z["tmp"] is not None:
-        trainer.tmp = Template(**z["tmp"])
+        trainer.tmp = make_template(**z["tmp"])
     trainer.opt_times = z["opt_times"]
     trainer.forward_time = z["forward_time"]
     return z["epoch"]

@@ -4,22 +4,28 @@ port of ``selfreconcode_tpu/engine/trainer.py``).
 One step (``make_train_step``) is three passes:
 
   geom   (no grad) deform the template, seed one canonical point per pixel
-         by the nearest projected vertex (scatter-min), dilate the GT mask,
-         draw P rays inside it;
+         by the nearest projected vertex (scatter-min) or, with
+         point_inits=False, by the rasterized fragments (the CUDA mesh
+         kernel), dilate the GT mask, draw P rays inside it;
   inner  splat soft mask of the deformed template (the CUDA splat kernels),
-         IoU + deformation consistency; backward into the template verts
-         (SGD with momentum 0.9, lr 0.05) and into the shared parameters;
+         IoU, the mesh regularizers whose weight is > 0 (Laplacian, edge
+         length, normal consistency) and deformation consistency; backward
+         into the template verts (SGD with momentum 0.9, lr 0.05) and into
+         the shared parameters;
   outer  Newton surface points with the IFT gradient, eikonal, deformation
          regularizer, DCT prior, colour and normal losses, SDF anchor;
          backward, add to the inner gradients, mask frozen leaves, Adam.
 
 The trainer builds the skinner, pretrains the SDF (IGR), remeshes (octree
-sweep + marching cubes) every ``remesh_intersect`` steps and runs the steps.
+sweep + marching cubes, then the template's edge topology) every
+``remesh_intersect`` steps, runs the steps and dumps debug meshes and
+renders (``save_debug``).
 Everything is exact-size eager torch; nothing is padded to a capacity.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import os.path as osp
 import time
 from dataclasses import dataclass
@@ -36,7 +42,7 @@ from ..models.skinner import (Skinner, build_skinner, frame_rows,
                               posed_skeleton, skinner_apply_shared)
 from ..models.translator import TranslatorNet
 from ..ops.marching_cubes import marching_cubes
-from ..ops.rasterize import splat_mask
+from ..ops.rasterize import rasterize_mesh, splat_mask
 from ..ops.sparse_sdf import grid_world_coords, sparse_sdf_grid
 from ..render.camera import (Camera, ang_threshold, cam_pos, make_camera,
                              transform_points_screen, view_rays)
@@ -45,7 +51,8 @@ from ..utils.math import (dct_null_space, gm_robust, inv3x3,
                           log_singular_values_sq_sum, normalize, quat2mat)
 from ..utils.sampling import sample_points, subsample_mask_topk
 from . import losses as L
-from .surface import SurfaceConfig, surface_points
+from .surface import (SurfaceConfig, surface_inits_from_fragments,
+                      surface_points)
 
 # ---------------------------------------------------------------------------
 # Static stage configuration
@@ -94,6 +101,9 @@ class StageStatic:
     opt_cam_T: bool = True
     has_normals: bool = False
     surf_iters: int = 10
+    point_inits: bool = True    # ray seeds by vertex projection (False: by
+                                # rasterized fragments, the reference's way)
+    raster_footprint: int = 8   # picks the mesh raster cell (rasterize_mesh)
 
     def rays(self) -> int:
         per = (self.sample_pix if self.weights.sample_pix_num == 0
@@ -106,6 +116,16 @@ class Template:
     verts: torch.Tensor         # (nv, 3)
     faces: torch.Tensor         # (nf, 3)
     momentum: torch.Tensor      # (nv, 3) inner-SGD momentum
+    topo: meshops.EdgeTopology  # edges of the faces (mesh regularizers)
+
+
+def make_template(verts, faces, momentum=None) -> Template:
+    """A template with its edge topology built from the faces (at every
+    remesh and on checkpoint load); momentum defaults to zeros."""
+    return Template(verts=verts, faces=faces,
+                    momentum=(torch.zeros_like(verts) if momentum is None
+                              else momentum),
+                    topo=meshops.build_edge_topology(faces))
 
 
 class AvatarNets(nn.Module):
@@ -197,6 +217,52 @@ def image_batch(batch: dict, device) -> Tuple[torch.Tensor, ...]:
 
 
 # ---------------------------------------------------------------------------
+# Ray seeds of the geom pass
+# ---------------------------------------------------------------------------
+
+def point_seeds(cam: Camera, verts: torch.Tensor, def_verts: torch.Tensor):
+    """Per frame of def_verts (N, nv, 3), the template vertex whose
+    projection is the nearest at each pixel (a scatter-min of depth, then
+    of vertex id).  Returns (seeds (N, H, W, 3), covered (N, H, W))."""
+    H, W = cam.H, cam.W
+    nv = verts.shape[0]
+    dev = verts.device
+    big = 3e38
+    # an uncovered pixel seeds at the origin (JAX's padding vertex)
+    seed = torch.cat([verts, verts.new_zeros(1, 3)])
+    inits, covers = [], []
+    for dv in def_verts:
+        s = transform_points_screen(cam, dv)
+        col = torch.round(s[:, 0]).long()
+        row = torch.round(s[:, 1]).long()
+        z = s[:, 2]
+        ok = (z > 0.0) & (col >= 0) & (col < W) & (row >= 0) & (row < H)
+        pix = row.clamp(0, H - 1) * W + col.clamp(0, W - 1)
+        zimg = torch.full((H * W,), big, device=dev)
+        zimg.scatter_reduce_(0, pix[ok], z[ok], "amin")
+        win = ok & (z <= zimg[pix])
+        vid = torch.full((H * W,), nv, dtype=torch.long, device=dev)
+        vid.scatter_reduce_(0, pix[win], torch.arange(nv, device=dev)[win],
+                            "amin")
+        covers.append((zimg < big).reshape(H, W))
+        inits.append(seed[vid].reshape(H, W, 3))
+    return torch.stack(inits), torch.stack(covers)
+
+
+def fragment_seeds(cam: Camera, verts: torch.Tensor, faces: torch.Tensor,
+                   def_verts: torch.Tensor, footprint: int):
+    """Per frame of def_verts (N, nv, 3), the template point at the
+    barycentrics of the nearest rasterized face (reference FindSurfacePs
+    semantics; one mesh-kernel launch per frame on the card).  Returns
+    (seeds (N, H, W, 3), covered (N, H, W), face ids (N, H, W))."""
+    frags = [rasterize_mesh(cam, dv, faces, footprint) for dv in def_verts]
+    p2f = torch.stack([f.pix_to_face for f in frags])
+    inits, covered = surface_inits_from_fragments(
+        verts, faces, p2f, torch.stack([f.bary for f in frags]))
+    return inits, covered, p2f
+
+
+# ---------------------------------------------------------------------------
 # The training step
 # ---------------------------------------------------------------------------
 
@@ -207,11 +273,6 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
 
     Updates the nets and the bank in place (Adam); after the call each leaf's
     .grad holds the masked inner + outer gradient the update used."""
-    if (cfg.weights.laplacian_weight > 0 or cfg.weights.edge_weight > 0
-            or cfg.weights.norm_weight > 0):
-        raise NotImplementedError(
-            "the mesh regularizers (laplacian/edge/norm_weight > 0) are not "
-            "ported yet; configs/config.conf keeps them off")
     surf_cfg = SurfaceConfig(n_iters=cfg.surf_iters,
                              athreshold_deg=ang_thresh_deg)
     w = cfg.weights
@@ -234,36 +295,23 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
             cam = camera_from_bank(bank, H, W, cfg)
             poses, trans, dcond, _ = frame_params(bank, fids)
             nv = tmp.verts.shape[0]
-            dev = tmp.verts.device
-            binds = torch.arange(N, device=dev).repeat_interleave(nv)
+            binds = torch.arange(N, device=tmp.verts.device).repeat_interleave(
+                nv)
             def_verts = deformer_apply(translator, skinner, tmp.verts.repeat(N, 1),
                                        binds, dcond, poses, trans,
                                        r_def)[0].reshape(N, nv, 3)
-            big = 3e38
-            inits, covers = [], []
-            for i in range(N):
-                s = transform_points_screen(cam, def_verts[i])
-                col = torch.round(s[:, 0]).long()
-                row = torch.round(s[:, 1]).long()
-                z = s[:, 2]
-                ok = (z > 0.0) & (col >= 0) & (col < W) & (row >= 0) & (row < H)
-                pix = row.clamp(0, H - 1) * W + col.clamp(0, W - 1)
-                zimg = torch.full((H * W,), big, device=dev)
-                zimg.scatter_reduce_(0, pix[ok], z[ok], "amin")
-                win = ok & (z <= zimg[pix])
-                vid = torch.full((H * W,), nv, dtype=torch.long, device=dev)
-                vid.scatter_reduce_(0, pix[win],
-                                    torch.arange(nv, device=dev)[win], "amin")
-                covers.append((zimg < big).reshape(H, W))
-                # an uncovered pixel seeds at the origin (JAX's padding vertex)
-                seed = torch.cat([tmp.verts, tmp.verts.new_zeros(1, 3)])
-                inits.append(seed[vid].reshape(H, W, 3))
+            if cfg.point_inits:
+                inits, covers = point_seeds(cam, tmp.verts, def_verts)
+            else:
+                inits, covers, _ = fragment_seeds(cam, tmp.verts, tmp.faces,
+                                                  def_verts,
+                                                  cfg.raster_footprint)
             mgtMs = L.max_pool_mask(gtMs, radius_px)
-            sel = torch.stack(covers) & (gtMs > 0.0)
+            sel = covers & (gtMs > 0.0)
             idx, sel_ok = subsample_mask_topk(sel.reshape(-1), P,
                                               scores=draws.sel_scores)
             rem = idx % (H * W)
-            return (torch.stack(inits).reshape(-1, 3)[idx], sel_ok,
+            return (inits.reshape(-1, 3)[idx], sel_ok,
                     idx // (H * W), rem // W, rem % W, mgtMs)
 
     def inner_pass(bank, tmp, fids, mgtMs, r_def):
@@ -285,6 +333,18 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
         info = {"pc_mask_loss": mask_loss.detach(),
                 "splat_max_cell": stats[:, 0].max(),
                 "splat_active": stats[:, 1].max()}
+        if w.laplacian_weight > 0.0:
+            lap = meshops.uniform_laplacian_loss(tv, tmp.topo.edges)
+            loss = loss + w.laplacian_weight * lap
+            info["pc_lap_loss"] = lap.detach()
+        if w.edge_weight > 0.0:
+            el = meshops.edge_length_loss(tv, tmp.topo.edges)
+            loss = loss + w.edge_weight * el
+            info["pc_edge_loss"] = el.detach()
+        if w.norm_weight > 0.0:
+            nc = meshops.normal_consistency_loss(tv, tmp.faces, tmp.topo)
+            loss = loss + w.norm_weight * nc
+            info["pc_norm_loss"] = nc.detach()
         if w.def_consistent_weight > 0.0:
             lbs_b = skinner_apply_shared(skinner, tv, poses, trans)
             dc = L.def_consistency_loss(def_verts, lbs_b, valid,
@@ -295,8 +355,8 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
         # torch SGD(momentum=0.9, lr=0.05): buf = 0.9*buf + g; v -= lr*buf
         with torch.no_grad():
             mom = 0.9 * tmp.momentum + tv.grad
-            new_tmp = Template(verts=tmp.verts - 0.05 * mom, faces=tmp.faces,
-                               momentum=mom)
+            new_tmp = dataclasses.replace(tmp, verts=tmp.verts - 0.05 * mom,
+                                          momentum=mom)
         info["pred_mask_sum"] = masks.detach().sum()
         return new_tmp, loss.detach(), info
 
@@ -617,6 +677,12 @@ class Trainer:
             self.b_max = (self.b_max + hi_amt).astype(np.float32)
             grow_left[:3] -= lo_amt
             grow_left[3:] -= hi_amt
+            # bigger voxels, bigger projected triangles: widen the stage's
+            # raster cells if the footprint grew
+            if self.stage_cfg is not None:
+                fp = self._stage_footprint(self.stage_cfg.resolutions)
+                if fp > self.stage_cfg.raster_footprint:
+                    self.override_stage(raster_footprint=fp)
             print(f"growing sweep bbox 8% on clipped sides (attempt "
                   f"{tries + 1}): plane inside-counts (x-,x+,y-,y+,z-,z+)="
                   f"{sides.tolist()}, {mc.n_boundary} ownerless crossings",
@@ -633,12 +699,31 @@ class Trainer:
     def remesh(self, ratio_sdf: float):
         t0 = time.perf_counter()
         mc = self.discretize_sdf(ratio_sdf)
-        self.tmp = Template(verts=mc.verts, faces=mc.faces,
-                            momentum=torch.zeros_like(mc.verts))
+        self.tmp = make_template(mc.verts, mc.faces)
         self._sync()
         self.timings["remesh"] = time.perf_counter() - t0
         self.remesh_time = 1.0 + np.floor(self.remesh_time)
         return mc.verts.shape[0], mc.faces.shape[0]
+
+    def _stage_footprint(self, res) -> int:
+        """Raster footprint from the marching-cubes voxel: a triangle never
+        exceeds one voxel, so its projected bbox is bounded by
+        2 voxel * focal / nearest depth (the dataset's camera; JAX
+        trainer.py:1177-1186), clipped to the mesh kernel's 32 px cells.
+        The body's depth is the camera's T plus the nearest frame's trans:
+        JAX's scenes keep it in T, the port's in trans (dataset.py), and
+        both give the same footprint.  The port bins a wider face into
+        every cell it covers, so this only picks the cell size
+        (``mesh_cell_size``)."""
+        spacing, _ = grid_world_coords(tuple(res[-1]), self.b_min,
+                                       self.b_max)
+        cp = self.dataset.camera_params
+        depth = (float(cp["world2cam_coord_trans"][2])
+                 + float(self.dataset.trans[:, 2].min()))
+        z_min = max(depth - float(self.b_max[2]), 0.3)
+        vox = float(spacing.max())
+        return int(np.clip(np.ceil(
+            2.0 * vox * float(cp["focal_length"][0]) / z_min) + 2, 6, 32))
 
     # -- stages -------------------------------------------------------------
     def set_stage(self, name: str):
@@ -664,22 +749,25 @@ class Trainer:
             sample_pix_num=(wc.get_int("sample_pix_num")
                             if "sample_pix_num" in wc else 0))
         occ = conf.get_config("train.opt_camera")
+        res = tuple(tuple(r) for r in self.resolutions[name])
         self.stage_cfg = StageStatic(
             name=name, N=tr.get_int("batch_size"),
             H=self.dataset.H, W=self.dataset.W,
             sample_pix=conf.get_int("train.sample_pix_num"),
             radius=tr.get_float("radius"),
             remesh_intersect=tr.get_int("remesh_intersect"),
-            resolutions=tuple(tuple(r) for r in self.resolutions[name]),
-            weights=lw, window=self.window,
+            resolutions=res, weights=lw, window=self.window,
             opt_pose=conf.get_bool("train.opt_pose"),
             opt_trans=conf.get_bool("train.opt_trans"),
             opt_cam_focal=occ.get_bool("focal_length"),
             opt_cam_principal=occ.get_bool("princeple_points"),
             opt_cam_quat=occ.get_bool("quat"),
             opt_cam_T=occ.get_bool("T"),
-            has_normals=self.dataset.has_normals)
+            has_normals=self.dataset.has_normals,
+            raster_footprint=self._stage_footprint(res))
         self._step_fn = None
+        # the new stage remeshes at its first step, at its own resolutions
+        self.forward_time = 0
 
     def override_stage(self, **kw):
         """Replace static stage fields (tests shrink sample counts)."""
@@ -692,6 +780,59 @@ class Trainer:
                 self.nets, self.skinner, self.stage_cfg, self.dctnull,
                 self.ang_thresh, self.optimizer)
         return self._step_fn
+
+    # -- debug artifacts (reference save_debug, model/network.py:374-447) ----
+    @torch.no_grad()
+    def save_debug(self, debug_root: str, fids, batch):
+        """Dump the template and, per frame of fids, its deformed and
+        translator-only meshes (tmp.ply, def_i.ply, def1_i.ply), the splat
+        mask (m{i}.png, the splat forward kernel on the card), the GT mask
+        when batch is given (gm{i}.png), and a Phong render and a face-normal
+        image of the rasterized deformed mesh (rgb{i}.png, n{i}.png; the
+        mesh kernel).  Seen through the dataset's camera, as in JAX."""
+        import cv2
+        from ..render.shading import phong_shade
+        os.makedirs(debug_root, exist_ok=True)
+        tmp, cfg = self.tmp, self.stage_cfg
+        faces = tmp.faces.long()
+        write_mesh = meshops.write_mesh
+        write_mesh(osp.join(debug_root, "tmp.ply"), tmp.verts, faces)
+        fids_t = torch.as_tensor(np.asarray(fids), device=self.device)
+        N, nv = len(fids_t), tmp.verts.shape[0]
+        binds = torch.arange(N, device=self.device).repeat_interleave(nv)
+        dv, off = deformer_apply(
+            self.nets.translator, self.skinner, tmp.verts.repeat(N, 1), binds,
+            self.bank["dcond"][fids_t], self.bank["poses"][fids_t],
+            self.bank["trans"][fids_t], 1.0)
+        dv, off = dv.reshape(N, nv, 3), off.reshape(N, nv, 3)
+        cp = self.dataset.camera_params
+        cam = make_camera(cp["focal_length"], cp["princeple_points"],
+                          cp["cam2world_coord_quat"],
+                          cp["world2cam_coord_trans"], self.dataset.H,
+                          self.dataset.W, device=self.device)
+        valid = torch.ones(nv, dtype=torch.bool, device=self.device)
+
+        def png(name, img):
+            cv2.imwrite(osp.join(debug_root, name),
+                        (img.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy())
+
+        for i in range(N):
+            write_mesh(osp.join(debug_root, f"def_{i}.ply"), dv[i], faces)
+            write_mesh(osp.join(debug_root, f"def1_{i}.ply"),
+                       tmp.verts + off[i], faces)
+            png(f"m{i}.png", splat_mask(cam, dv[i], valid, cfg.radius))
+            if batch is not None:
+                cv2.imwrite(osp.join(debug_root, f"gm{i}.png"),
+                            (np.asarray(batch["mask"][i]) * 255).astype(
+                                np.uint8))
+            frags = rasterize_mesh(cam, dv[i], faces, cfg.raster_footprint)
+            rgb, hit = phong_shade(cam, dv[i], faces, frags, cam_pos(cam))
+            fn = meshops.face_normals(dv[i], faces)
+            nimg = torch.where(hit[..., None],
+                               fn[frags.pix_to_face.clamp_min(0).long()] * 0.5
+                               + 0.5, torch.ones_like(rgb))
+            png(f"rgb{i}.png", rgb)
+            png(f"n{i}.png", nimg)
 
     # -- one optimization step ---------------------------------------------
     def train_step(self, fids, batch: dict, lr: float) -> Dict[str, float]:

@@ -1,9 +1,11 @@
-"""SMPL body model pieces the training slice needs (torch port of
-``selfreconcode_tpu/models/smpl.py``): the deterministic toy body, the shape
-blend, the forward kinematics and the canonical A-pose.  The pickle loader
-and its schema validator are not ported yet."""
+"""SMPL body model (torch port of ``selfreconcode_tpu/models/smpl.py``): the
+``*_smpl_with_cocoplus_reg.pkl`` loader with its schema validator, the
+asset search of ``get_smpl``, the deterministic toy body, the shape blend,
+the forward kinematics and the canonical A-pose."""
 from __future__ import annotations
 
+import os
+import pickle
 from dataclasses import dataclass
 
 import numpy as np
@@ -31,6 +33,133 @@ class SMPLModel:
     weights: np.ndarray        # (V, 24)
     faces: np.ndarray          # (F, 3) int32
     parents: np.ndarray        # (24,) int32
+
+
+class SMPLSchemaError(ValueError):
+    """A `*_smpl_with_cocoplus_reg.pkl` failed schema validation.
+
+    Every message names the offending field, what was found, and what the
+    standard asset (smpl_pytorch/SMPL.py:27-75) is expected to contain: the
+    loader meets a real downloaded asset for the first time in a user's
+    hands, so errors must be actionable, not shape-mismatch tracebacks deep
+    in the FK code.
+    """
+
+
+def load_smpl_pickle(path: str) -> SMPLModel:
+    """Load a `*_smpl_with_cocoplus_reg.pkl` (the asset the reference uses).
+
+    Validates the full schema before building the model; raises
+    SMPLSchemaError with an actionable message on any deviation.
+    """
+    with open(path, "rb") as f:
+        model = pickle.load(f, encoding="latin1")
+
+    def _fail(msg):
+        raise SMPLSchemaError(f"{path}: {msg}")
+
+    if not isinstance(model, dict):
+        _fail(f"expected a pickled dict, got {type(model).__name__}; the "
+              "asset is the HMR-style *_smpl_with_cocoplus_reg.pkl "
+              "(reference README.md:28)")
+    required = ("v_template", "shapedirs", "posedirs", "J_regressor",
+                "weights", "kintree_table", "f")
+    missing = [k for k in required if k not in model]
+    if missing:
+        _fail(f"missing required key(s) {missing}; present keys: "
+              f"{sorted(model.keys())}")
+
+    v_template = np.array(model["v_template"], dtype=np.float64)
+    if v_template.ndim != 2 or v_template.shape[1] != 3 or \
+            v_template.shape[0] < NUM_JOINTS:
+        _fail(f"v_template must be (V,3) with V>={NUM_JOINTS}, got "
+              f"{v_template.shape}")
+    V = v_template.shape[0]
+
+    shapedirs = np.array(model["shapedirs"], dtype=np.float64)
+    num_betas = shapedirs.shape[-1]
+    if shapedirs.size != V * 3 * num_betas or num_betas < 1:
+        _fail(f"shapedirs must reshape to (V*3, num_betas)=(({V}*3), B), "
+              f"got shape {shapedirs.shape}")
+    shapedirs = shapedirs.reshape(-1, num_betas).T
+
+    posedirs = np.array(model["posedirs"], dtype=np.float64)
+    if posedirs.shape[-1] != 207 or posedirs.size != V * 3 * 207:
+        _fail(f"posedirs must be (V,3,207) (pose-blend basis over the 23 "
+              f"non-root joint rotations), got shape {posedirs.shape}")
+    posedirs = posedirs.reshape(-1, posedirs.shape[-1]).T
+
+    raw_jr = model["J_regressor"]
+    if hasattr(raw_jr, "todense"):  # scipy sparse (the real asset ships CSC)
+        j_regressor = np.asarray(raw_jr.todense(), dtype=np.float64)
+    else:
+        j_regressor = np.array(raw_jr, dtype=np.float64)
+    if j_regressor.shape == (NUM_JOINTS, V) and V != NUM_JOINTS:
+        # plain-SMPL orientation; the cocoplus asset stores (V,24)
+        j_regressor = j_regressor.T
+    if j_regressor.shape != (V, NUM_JOINTS):
+        _fail(f"J_regressor must be (V,{NUM_JOINTS})=({V},{NUM_JOINTS}) "
+              f"(dense or scipy-sparse), got {j_regressor.shape}")
+
+    weights = np.array(model["weights"], dtype=np.float64)
+    if weights.shape != (V, NUM_JOINTS):
+        _fail(f"weights (LBS skinning weights) must be (V,{NUM_JOINTS})="
+              f"({V},{NUM_JOINTS}), got {weights.shape}")
+    wsum = weights.sum(axis=1)
+    if weights.min() < -1e-4 or abs(wsum - 1.0).max() > 1e-3:
+        _fail(f"weights rows must be a convex combination over joints "
+              f"(min {weights.min():.3g}, row-sum range "
+              f"[{wsum.min():.4f},{wsum.max():.4f}]); this does not look "
+              "like an LBS weight matrix")
+
+    kintree = np.array(model["kintree_table"])
+    if kintree.ndim != 2 or kintree.shape[1] != NUM_JOINTS:
+        _fail(f"kintree_table must be (2,{NUM_JOINTS}), got {kintree.shape}")
+    parents = kintree[0].astype(np.int64)
+    parents[0] = 0  # root sentinel (4294967295 in the real asset)
+    if (parents[1:] >= np.arange(1, NUM_JOINTS)).any() or parents.min() < 0:
+        _fail(f"kintree_table row 0 must be topologically ordered parents "
+              f"(parent[i] < i for i>=1; SMPL's tree satisfies this), got "
+              f"{parents.tolist()} — the unrolled FK chain "
+              "(global_rigid_transform) requires it")
+    parents = parents.astype(np.int32)
+
+    faces = np.array(model["f"], dtype=np.int64)
+    if faces.ndim != 2 or faces.shape[1] != 3 or faces.size == 0:
+        _fail(f"f (faces) must be a non-empty (F,3) int array, got shape "
+              f"{faces.shape}")
+    if faces.min() < 0 or faces.max() >= V:
+        _fail(f"face indices out of range [0,{V}): min {faces.min()}, max "
+              f"{faces.max()} — 1-based or truncated face table?")
+    return SMPLModel(
+        v_template=v_template.astype(np.float32),
+        shapedirs=shapedirs.astype(np.float32),
+        posedirs=posedirs.astype(np.float32),
+        j_regressor=j_regressor.astype(np.float32),
+        weights=weights.astype(np.float32),
+        faces=faces.astype(np.int32), parents=parents)
+
+
+def get_smpl(gender: str, model_dir: str | None = None) -> SMPLModel:
+    """Load `{gender}_smpl_with_cocoplus_reg.pkl` from model_dir, then this
+    package's models/assets/, then $SMPL_MODEL_DIR.  Raises
+    FileNotFoundError naming every path tried; never falls back to a
+    synthetic body."""
+    name = f"{gender}_smpl_with_cocoplus_reg.pkl"
+    candidates = []
+    if model_dir:
+        candidates.append(os.path.join(model_dir, name))
+    candidates.append(os.path.join(os.path.dirname(__file__), "assets", name))
+    env = os.environ.get("SMPL_MODEL_DIR")
+    if env:
+        candidates.append(os.path.join(env, name))
+    for c in candidates:
+        if os.path.isfile(c):
+            return load_smpl_pickle(c)
+    raise FileNotFoundError(
+        f"SMPL model for gender={gender!r} not found in {candidates}; download "
+        "the neutral/male/female *_smpl_with_cocoplus_reg.pkl assets or set "
+        "SMPL_MODEL_DIR.")
 
 
 def toy_smpl_model(n_verts: int = 800, seed: int = 0) -> SMPLModel:

@@ -130,7 +130,6 @@ def port_skinner(jsk):
 
 def port_template(s):
     """The JAX template's real rows as the port's exact-size Template."""
-    return TTR.Template(
-        verts=torch.tensor(np.asarray(s["tmp"].verts)[:s["nv"]]),
-        faces=torch.tensor(np.asarray(s["tmp"].faces)[:s["nf"]]).long(),
-        momentum=torch.zeros(s["nv"], 3))
+    return TTR.make_template(
+        torch.tensor(np.asarray(s["tmp"].verts)[:s["nv"]]),
+        torch.tensor(np.asarray(s["tmp"].faces)[:s["nf"]]).long())

@@ -214,3 +214,45 @@ def test_infer_cli_on_cpu(tmp_path):
     assert text.splitlines()[2:4] == ["0: %f" % errs[0], "1: %f" % errs[1]]
     with pytest.raises(SystemExit):
         icli.parse_args(["--rec-root", str(rec), "--gpu-ids", "0"])
+
+
+def test_infer_cli_synthetic_body_on_cpu(tmp_path):
+    """Port-only: both CLIs with --synthetic-body on a 40x40 subject of the
+    6890-vertex body; maskE now scores the template against the body's own
+    silhouettes.  The IGR cache is the SDF's geometric init with bias 0.5 (a
+    sphere of radius ~0.27 inside the sweep box), so training skips IGR."""
+    import torch
+
+    from selfreconcode_tpu_torch.cli import infer as icli
+    from selfreconcode_tpu_torch.cli import train as tcli
+    from selfreconcode_tpu_torch.data.synthetic_subject import \
+        make_synthetic_subject
+    from selfreconcode_tpu_torch.models.sdf import SDFNet
+
+    scene = tmp_path / "subject"
+    make_synthetic_subject(str(scene), n_frames=4, H=H, W=W, verbose=False,
+                           device="cpu")
+    torch.save(SDFNet(multires=6, bias=0.5, seed=1).state_dict(),
+               scene / "initial_sdf_idr_6_1_torch.pt")
+    conf = open(osp.join(osp.dirname(__file__), "..", "configs",
+                         "config.conf")).read()
+    (tmp_path / "c.conf").write_text(conf)
+    res = {st: [(9, 9, 9), (17, 17, 17)] for st in ("coarse", "medium",
+                                                      "fine")}
+
+    def tune(tr):
+        tr.override_stage(sample_pix=16, eik_tmp=128, anchor_sub=256,
+                          surf_iters=2)
+
+    tcli.main(["--conf", str(tmp_path / "c.conf"), "--data", str(scene),
+               "--save-folder", "rec", "--synthetic-body", "--max-epochs",
+               "0", "--device", "cpu"], resolutions=res,
+              skinner_res=(17, 29, 9), tune=tune)
+    summary = icli.main(["--rec-root", str(scene / "rec"), "--synthetic-body",
+                         "--frames", "1", "--nV", "--device", "cpu"],
+                        resolutions=res)
+    assert summary["trainer"].body_vs.shape == (6890, 3)
+    (fr,) = summary["frames"]
+    assert fr["hit_pixels"] > 0
+    assert 0.0 <= summary["mask_errors"][0] < 1.0
+    assert (scene / "rec" / "meshs" / "0.png").is_file()
