@@ -28,16 +28,36 @@ Phases:
      fragments (point_inits=False: one mesh-kernel launch per step) and the
      three mesh regularizers on, at config.conf's coarse magnitudes made
      positive (Laplacian 10, edge 10, normal consistency 0.001);
+  3d. resume through the checkpoint interchange on phase 3's subject, with
+     the train CLI at full width: (a) a reference-format .pth written from
+     phase 3's trainer (reference key names, an ``engine.*`` and a
+     ``deformer.defs.1.*`` key the loader must drop, the bank at the top
+     level with focal +1%), --model on it for one more coarse epoch of 4
+     steps: the dataset must hold the file's camera after the load (the
+     bank written back); (b) phase 3's latest.pt with --sdf-model a bare SDF
+     state_dict .pth (the IGR cache): the SDF must be the file's and Adam
+     empty before the first step; each 12 + 12 splat launches;
   4. inference path: ``selfreconcode_tpu_torch.cli.infer.main`` with
      --synthetic-body on phase 3's checkpoint, 2 frames (template remesh,
      Phong and def1 renders, maskE against the body's own silhouettes,
      colour solve); errors.txt must parse with 2 evaluated frames, each
-     maskE finite and in [0, 1].
-     Every path (the subject renders, coarse, fine, fragment steps,
-     inference) runs with all launch counters zeroed right before it and
-     read right after, and must launch each kernel it uses (splat forward
-     and backward in training, the mesh kernel in the renders, the debug
-     dump, fragment seeding and inference); the kernels line sums them;
+     maskE finite and in [0, 1];
+  4b. texture: ``template/uvmap.obj`` written from phase 3b's fine template
+     with a cylindrical UV (faces_vt = faces_v), then
+     ``selfreconcode_tpu_torch.cli.texture`` prepare --num 4 (the fine
+     checkpoint through load_checkpoint, the uvmap deformed on the card)
+     and extract --tex-size 1024: exactly one mesh-kernel launch per baked
+     frame; prints prepare_s, bake_s_per_frame, coverage and the size.
+     Then the bake on the card is held to the CPU, each half on the same
+     inputs: frame 0's view weights from the card's fragments (within
+     4e-6) and the aggregation of all 4 frames from the card's fragments
+     and weights (texture and weight within 1e-6).
+     Every path (the subject renders, coarse, fine, fragment steps, the
+     resumes, inference, the texture CLIs) runs with all launch counters
+     zeroed right before it and read right after, and must launch each
+     kernel it uses (splat forward and backward in training, the mesh
+     kernel in the renders, the debug dump, fragment seeding, inference and
+     the bake); the kernels line sums them;
   5. splat kernels vs plain on the card at shape A (1080x1080 frame, 134k
      points on a body-sized shell, radius 0.0041), shape B (the trained
      template deformed into frame 0 of the 512x512 scene, radius 0.006),
@@ -54,10 +74,11 @@ Phases:
      (C at 1080x1080, focal and principal point scaled by 1080/512), shape
      F (phase 3b's fine-stage template deformed into frame 0 at 1080x1080,
      binned with the stage's raster footprint: what fragment seeding and
-     the debug dump rasterize), shape F-32 (F in the largest cells, 32 px)
-     and shape S (frame 0 of phase 3b's subject: the subdivided render
-     mesh at the subject's own footprint, 16-24 px cells).  Each launch
-     runs twice and must give the same bits;
+     the debug dump rasterize), shape S (frame 0 of phase 3b's subject: the
+     subdivided render mesh at the subject's own footprint, 16-24 px cells)
+     and shape T (the texture bake's frame-0 mesh, the deformed uvmap, at
+     the bake's footprint: the largest cells, 32 px).
+     Each launch runs twice and must give the same bits;
   7. the kernels' JSON line, then the device JSON line last.
 
 Each kernel is timed four ways at each shape: ``device_us``, its own time
@@ -119,6 +140,9 @@ OPS_MESH_PAIR = 40      # mesh kernel, per (face entry, pixel of the face's
 OPS_MESH_HIT = 40       # mesh kernel, per hit pixel: the winner's edge
                         # functions and divides again, three more divides
                         # to b_i / z_i, their sum and three to normalize
+WEIGHT_TOL = 4e-6       # bake weight |n.v|^8, card vs CPU, absolute: d/dx
+                        # x^8 is 8 at 1, so 4 float32 ulps of n.v (the
+                        # normals summed in another order) move it ~2e-6
 # mesh kernel vs plain: the kernel is built with -fmad=false and rounds like
 # the plain version, and both keep the first minimum in run order, so every
 # output must be identical: hit mask, z, face id and barycentrics
@@ -727,6 +751,195 @@ def main_path(workdir, paths):
     return trainer
 
 
+def reference_pth(trainer, path, epoch):
+    """Write the trainer as a reference-format checkpoint (the reference's
+    utils/utils.py:257-264): the nets' state_dict under the reference key
+    names, two keys the loader must drop (``engine.*``, the skinner's
+    ``deformer.defs.1.*``), and the bank at the top level with the focal
+    length moved +1% (a camera the scene's camera.npz does not hold).
+    Returns the file's camera."""
+    import torch
+    from selfreconcode_tpu_torch.engine.torch_compat import CAM_KEYS
+    sd = {k: v.detach().cpu() for k, v in trainer.nets.state_dict().items()}
+    sd["engine.b_min"] = torch.zeros(1, 3)
+    sd["deformer.defs.1.ws"] = torch.zeros(2, 2, 2, 2, 2)
+    bank = {k: v.detach().cpu().clone() for k, v in trainer.bank.items()}
+    bank["focal_length"] *= 1.01
+    torch.save({"epoch": epoch, "model_state_dict": sd, **bank}, path)
+    return {k: bank[k].numpy() for k in CAM_KEYS}
+
+
+def interchange_path(workdir, trainer, paths):
+    """Phase 3d: resume phase 3's subject through the checkpoint
+    interchange with the train CLI: (a) one coarse epoch from a reference
+    .pth of phase 3's trainer; (b) phase 3's latest.pt with --sdf-model a
+    bare SDF state_dict .pth (the IGR cache)."""
+    import numpy as np
+    import torch
+    from selfreconcode_tpu_torch.cli import train as cli
+    from selfreconcode_tpu_torch.engine.torch_compat import CAM_KEYS
+
+    scene = osp.join(workdir, "scene")
+    argv = ["--conf", osp.join(ROOT, "configs", "config.conf"), "--data",
+            scene, "--max-epochs", "1", "--device", "cuda"]
+    pth = osp.join(workdir, "reference.pth")
+    cam = reference_pth(trainer, pth, epoch=1)
+    t0 = time.perf_counter()
+    tr, launched = counted(cli.main, argv + ["--save-folder", "rec_pth",
+                                             "--model", pth])
+    wall = time.perf_counter() - t0
+    check_steps(tr.history, tr.rays_per_step(), 4, "resumed from a .pth")
+    print_seconds(tr, "resumed from a .pth", wall)
+    got = tr.dataset.camera_params
+    print(f"  dataset camera after the load: "
+          f"{ {k: got[k].tolist() for k in CAM_KEYS} }", flush=True)
+    if not all(np.array_equal(got[k], cam[k]) for k in CAM_KEYS):
+        raise AssertionError(f"the dataset's camera {got} is not the "
+                             f"file's {cam}: the bank was not written back")
+    need_launches("resume from a .pth", launched, splat_fwd=12, splat_bwd=12)
+    paths["resume .pth"] = launched
+
+    bare = osp.join(workdir, "sdf_bare.pth")
+    shutil.copyfile(osp.join(scene, "initial_sdf_idr_6_1_torch.pt"), bare)
+    want = torch.load(bare, map_location="cpu")
+    seen = {}
+
+    def tune(t):
+        if not seen:      # right after the load, before the first step
+            sd = t.nets.sdf.state_dict()
+            seen["sdf"] = set(sd) == set(want) and all(
+                torch.equal(v.cpu(), want[k]) for k, v in sd.items())
+            seen["adam"] = len(t.optimizer.state)
+
+    t0 = time.perf_counter()
+    tr, launched = counted(cli.main, argv + [
+        "--save-folder", "rec_sdf", "--model",
+        osp.join(scene, "rec", "latest.pt"), "--sdf-model", bare], tune=tune)
+    wall = time.perf_counter() - t0
+    check_steps(tr.history, tr.rays_per_step(), 4, "--sdf-model")
+    print_seconds(tr, "--sdf-model", wall)
+    print(f"  --sdf-model: SDF equal to the file's {seen['sdf']}, Adam "
+          f"entries before the first step {seen['adam']}", flush=True)
+    if not seen["sdf"] or seen["adam"]:
+        raise AssertionError(f"--sdf-model: {seen}")
+    need_launches("--sdf-model", launched, splat_fwd=12, splat_bwd=12)
+    paths["resume --sdf-model"] = launched
+
+
+def write_uvmap(path, verts, faces):
+    """A UV'd OBJ of the template (the file the reference asks its user to
+    make): a cylindrical UV around the body's vertical axis, faces_vt =
+    faces_v."""
+    import numpy as np
+    v = verts.detach().cpu().numpy().astype(np.float64)
+    f = faces.cpu().numpy() + 1
+    c = v.mean(0)
+    u = np.arctan2(v[:, 0] - c[0], v[:, 2] - c[2]) / (2.0 * np.pi) + 0.5
+    h = (v[:, 1] - v[:, 1].min()) / np.ptp(v[:, 1])
+    os.makedirs(osp.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        fh.write("".join(f"v {a:.6f} {b:.6f} {z:.6f}\n" for a, b, z in v))
+        fh.write("".join(f"vt {a:.6f} {b:.6f}\n" for a, b in zip(u, h)))
+        fh.write("".join(f"f {a}/{a} {b}/{b} {z}/{z}\n" for a, b, z in f))
+
+
+def texture_path(workdir, paths):
+    """Phase 4b: the texture CLIs on phase 3b's 1080^2 subject and its
+    fine-stage checkpoint: prepare --num 4, extract --tex-size 1024 (one
+    mesh-kernel launch per baked frame); then the bake held to the CPU on
+    tex_predata.npz's inputs (``bake_on_cpu``).  Returns (the bake's frame-0
+    mesh, its faces, the camera) for shape T."""
+    import torch
+    from selfreconcode_tpu_torch.cli import texture as tcli
+    from selfreconcode_tpu_torch.render.camera import make_camera
+
+    rec = osp.join(workdir, "fine", "rec")
+    prep, launched = counted(tcli.prepare, [
+        "--rec-root", rec, "--num", "4", "--synthetic-body", "--device",
+        "cuda"])
+    paths["texture prepare"] = launched
+    res, launched = counted(tcli.extract, [
+        "--rec-root", rec, "--tex-size", "1024", "--device", "cuda"])
+    n = res["frames"]
+    print(f"  prepare_s {prep['seconds']:.3f} (deformed {prep['def_vs_shape']}"
+          f"); bake_s_per_frame {res['bake_s'] / n:.4f} over {n} frames; "
+          f"coverage {res['coverage']:.4f}; texture {res['tex_shape']}",
+          flush=True)
+    need_launches("texture bake", launched, mesh_raster=n)
+    if launched["mesh_raster"] != n:
+        raise AssertionError(f"the bake launched the mesh kernel "
+                             f"{launched['mesh_raster']} times for {n} "
+                             f"frames")
+    if res["tex_shape"] != (1024, 1024, 3) or not res["coverage"] > 0:
+        raise AssertionError(f"texture {res['tex_shape']}, coverage "
+                             f"{res['coverage']}")
+    paths["texture bake"] = launched
+    d, imgs = tcli.load_predata(rec)
+    cams = {dev: make_camera(d["focal"], d["princeple"], d["quat"], d["T"],
+                             int(d["H"]), int(d["W"]), device=dev)
+            for dev in ("cuda", "cpu")}
+    bake_on_cpu(cams, d, imgs)
+    return (torch.as_tensor(d["def_vs"][0], device="cuda"),
+            torch.as_tensor(d["faces_v"], device="cuda").long(), cams["cuda"])
+
+
+def bake_on_cpu(cams, d, imgs):
+    """The bake on the card held to the same bake on the CPU, on
+    tex_predata.npz's inputs, half by half on identical inputs (the
+    rasterizer itself is held to its plain version by shape T).  The view
+    weights |n.v|^8 of frame 0, from the card's fragments on both devices:
+    within WEIGHT_TOL (the card sums the vertex normals with atomic adds in
+    another order).  The aggregation (two stable sorts, the strictly-greater
+    slot insert, the even-count median over inf-padded sorts) of all the
+    frames, from the card's fragments and weights on both devices: texture
+    and weight within 1e-6 (no tie can resolve otherwise on equal inputs).
+    The whole per-frame pass is not held across devices: the projection's
+    matmul rounds differently on each (its largest difference is printed),
+    which moves pixels on an edge, or at a depth tie, to the other face."""
+    import numpy as np
+    import torch
+    from selfreconcode_tpu_torch.ops.rasterize import (Fragments,
+                                                       rasterize_mesh)
+    from selfreconcode_tpu_torch.render.camera import transform_points_screen
+    from selfreconcode_tpu_torch.texture.uv import (accumulate_texture,
+                                                    view_weights)
+    faces = {dev: torch.as_tensor(d["faces_v"], device=dev).long()
+             for dev in cams}
+    verts = {dev: [torch.as_tensor(v, device=dev) for v in d["def_vs"]]
+             for dev in cams}
+    cam, f_c, v_c = cams["cuda"], faces["cuda"], verts["cuda"]
+    with torch.no_grad():
+        frags = [rasterize_mesh(cam, v, f_c, 32) for v in v_c]
+        card = [view_weights(cam, v, f_c, fr, 8.0)
+                for v, fr in zip(v_c, frags)]
+        t0 = time.perf_counter()
+        cpu0 = view_weights(cams["cpu"], verts["cpu"][0], faces["cpu"],
+                            Fragments(*(x.cpu() for x in frags[0])), 8.0)
+        cpu_s = time.perf_counter() - t0
+        proj_diff = float((transform_points_screen(cam, v_c[0]).cpu()
+                           - transform_points_screen(
+                               cams["cpu"], verts["cpu"][0])).abs().max())
+    w_err = float((card[0][2].cpu() - cpu0[2]).abs().max())
+    out = {}
+    for dev in ("cuda", "cpu"):
+        frs = [tuple(x.to(dev) for x in f) for f in card]
+        t0 = time.perf_counter()
+        out[dev] = accumulate_texture(frs, imgs, d["faces_vt"], d["uvs"],
+                                      1024, 8, dev)
+        out[dev + "_s"] = time.perf_counter() - t0
+    tex_err = float(np.abs(out["cuda"][0] - out["cpu"][0]).max())
+    wsum_err = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
+    print(f"  bake, card vs CPU: frame 0's projection max diff "
+          f"{proj_diff:.3g} (px, px, m); view weights from the card's "
+          f"fragments ({cpu_s:.2f} s on the CPU) max err {w_err:.3g}; "
+          f"aggregation of {len(card)} frames ({out['cuda_s']:.3f} s card, "
+          f"{out['cpu_s']:.2f} s CPU) texture max err {tex_err:.3g}, weight "
+          f"max err {wsum_err:.3g}; {int((out['cuda'][1] > 0).sum())} texels "
+          f"filled", flush=True)
+    if w_err > WEIGHT_TOL or tex_err > 1e-6 or wsum_err > 1e-6:
+        raise AssertionError("the bake on the card is not the CPU's")
+
+
 def fine_path(workdir, paths):
     """Phase 3b: the fine stage at 1080^2 through the train CLI; returns
     the trainer."""
@@ -933,6 +1146,9 @@ def main(argv=None):
         with torch.no_grad():
             pts_b = trainer.deformed_template([0])[0]
         cam_b = trainer.camera()
+        phase("3d", "resume through the checkpoint interchange: a reference "
+                    ".pth, then --sdf-model a bare SDF .pth")
+        interchange_path(work, trainer, paths)
         del trainer
         phase("3b", "fine stage: a 4-frame 1080x1080 subject, 4 fine steps "
                     "and the debug dump")
@@ -946,10 +1162,15 @@ def main(argv=None):
         phase("3c", "2 fine steps seeded from fragments, mesh regularizers "
                     "on")
         fragment_path(fine, paths)
+        write_uvmap(osp.join(work, "fine", "rec", "template", "uvmap.obj"),
+                    fine.tmp.verts, fine.tmp.faces)
         del fine
         phase(4, "inference path: cli.infer.main --synthetic-body on the "
                  "phase-3 checkpoint")
         verts_c, faces, cam_c = infer_path(work, paths)
+        phase("4b", "texture: cli.texture prepare --num 4 and extract "
+                    "--tex-size 1024 on phase 3b's checkpoint")
+        verts_t, faces_t, cam_t = texture_path(work, paths)
     launched = {k: sum(p[k] for p in paths.values()) for k in
                 next(iter(paths.values()))}
     print(f"  launches per path: {json.dumps(paths)}; in all {launched} "
@@ -988,13 +1209,10 @@ def main(argv=None):
     res_d = compare_mesh(f"D 1080x1080 {faces.shape[0]} faces", cam_d,
                          verts_c, faces)
     # F: what fragment seeding and the debug dump rasterize in the fine
-    # stage, at the stage's footprint and at the largest cell (32 px, 1024
-    # keys a cell), which a footprint grown with the sweep box reaches
+    # stage, at the stage's footprint
     res_f = compare_mesh(f"F 1080x1080 {faces_f.shape[0]} faces fp "
                          f"{footprint_f}", cam_e, pts_e, faces_f,
                          footprint=footprint_f)
-    res_f32 = compare_mesh(f"F-32 1080x1080 {faces_f.shape[0]} faces fp 32",
-                           cam_e, pts_e, faces_f, footprint=32)
     # S: frame 0 of phase 3b's subject, the render mesh at its footprint
     rig = subject_rig(1080, 1080, device="cuda")
     poses, trans = subject_trajectory(4)
@@ -1005,8 +1223,12 @@ def main(argv=None):
     res_s = compare_mesh(f"S 1080x1080 {rig.faces.shape[0]} faces fp "
                          f"{rig.footprint}", rig.cam, verts_s, rig.faces,
                          footprint=rig.footprint)
+    # T: the texture bake's frame-0 mesh (the deformed uvmap) at the bake's
+    # footprint: the largest cells (32 px, 1024 keys a cell)
+    res_t = compare_mesh(f"T 1080x1080 {faces_t.shape[0]} faces fp 32",
+                         cam_t, verts_t, faces_t, footprint=32)
     mesh = {"C": res_c, "C-dup": res_cd, "D": res_d, "F": res_f,
-            "F-32": res_f32, "S": res_s}
+            "S": res_s, "T": res_t}
 
     splat_src = "selfreconcode_tpu_torch/csrc/splat.cu"
     dense_note = "no caller in either package; launched by chip_smoke.py only"

@@ -69,14 +69,9 @@ def main(argv=None, resolutions=None):
     from ..engine.inference import make_infer_fn
     from ..engine.trainer import Trainer
     from ..utils.meshops import write_mesh
-    from .train import RESOLUTIONS, load_body
+    from .train import RESOLUTIONS, load_body, open_device
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device} but CUDA is not "
-                           "available; the port does not fall back to CPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    device = open_device(args.device)
 
     rec_root = args.rec_root
     conf = parse_file(osp.join(rec_root, "config.conf"))

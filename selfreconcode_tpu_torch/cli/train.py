@@ -40,9 +40,13 @@ def parse_args(argv=None):
                    help="not supported: pick the card with --device")
     p.add_argument("--conf", required=True, help="config file (HOCON)")
     p.add_argument("--data", required=True, help="data root")
-    p.add_argument("--model", default=None, help="checkpoint to resume")
+    p.add_argument("--model", default=None,
+                   help="checkpoint to resume: a port .pt, a reference .pth "
+                        "or a JAX .pkl (told apart by content)")
     p.add_argument("--sdf-model", default=None,
-                   help="substitute the SDF of this checkpoint on resume")
+                   help="substitute the SDF of this checkpoint (any of the "
+                        "three formats, or a bare SDF state_dict .pth) on "
+                        "resume; Adam restarts")
     p.add_argument("--model-rm-prefix", nargs="+", default=None,
                    help="accepted for CLI parity (keys carry no prefix)")
     p.add_argument("--save-folder", required=True)
@@ -66,6 +70,20 @@ def parse_args(argv=None):
     return args
 
 
+def open_device(name: str):
+    """torch.device(name); raises when it names CUDA and there is none (the
+    port never falls back to the CPU).  Switches TF32 off for matmuls and
+    cuDNN, so float32 stays float32."""
+    import torch
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name} but CUDA is not available; the "
+                           "port does not fall back to CPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
 def load_body(args, gender: str):
     """The SMPL model the flags ask for; without a body flag, the pickle
     of this gender (FileNotFoundError when there is none)."""
@@ -85,19 +103,13 @@ def main(argv=None, resolutions=None, skinner_res=None, tune=None):
     `skinner_res` the LBS volume size, and `tune(trainer)` runs right before
     the epoch loop and after each stage switch."""
     args = parse_args(argv)
-    import torch
     from ..config import parse_file
     from ..data.dataset import RandomSampler, SceneDataset, batch_iterator
-    from ..engine.checkpoint import load_checkpoint, save_checkpoint
+    from ..engine.checkpoint import (load_checkpoint, load_sdf_state,
+                                     save_checkpoint)
     from ..engine.trainer import Trainer
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device} but CUDA is not "
-                           "available; the port does not fall back to CPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
+    device = open_device(args.device)
     conf = parse_file(args.conf)
     data_root = args.data
     save_root = osp.join(data_root, args.save_folder)
@@ -125,9 +137,9 @@ def main(argv=None, resolutions=None, skinner_res=None, tune=None):
         print("load model:", args.model, flush=True)
         sdf_sub = None
         if args.sdf_model and osp.isfile(args.sdf_model):
-            nets = torch.load(args.sdf_model, map_location=device)["nets"]
-            sdf_sub = {k[4:]: v for k, v in nets.items()
-                       if k.startswith("sdf.")}
+            # a port .pt, a reference .pth (full or a bare SDF state_dict)
+            # or a JAX pickle (JAX's cli/train.py:119-132)
+            sdf_sub = load_sdf_state(args.sdf_model)
         start_epoch = load_checkpoint(args.model, trainer, sdf_state=sdf_sub)
     else:
         cache = osp.join(data_root,

@@ -19,6 +19,15 @@ import numpy as np
 from ..utils.math import dct_space
 
 
+def frame_images(data_root: str) -> List[str]:
+    """The scene's frame images (imgs/<int>.jpg or .png, any zero padding)
+    in frame order."""
+    imgs: List[str] = []
+    for ext in (".jpg", ".png"):
+        imgs.extend(glob(osp.join(data_root, "imgs/*" + ext)))
+    return sorted(imgs, key=lambda x: int(osp.basename(x).split(".")[0]))
+
+
 class SceneDataset:
     def __init__(self, data_root: str,
                  conds_lens: Optional[Dict[str, int]] = None, seed: int = 0):
@@ -35,10 +44,7 @@ class SceneDataset:
             self.conds[name] = (coef @ basis).T.copy()      # (F, length)
 
     def _read_meta(self):
-        imgs: List[str] = []
-        for ext in (".jpg", ".png"):
-            imgs.extend(glob(osp.join(self.root, "imgs/*" + ext)))
-        imgs.sort(key=lambda x: int(osp.basename(x).split(".")[0]))
+        imgs = frame_images(self.root)
         if not imgs:
             raise FileNotFoundError(f"no images under {self.root}/imgs")
         self.img_ns = imgs
@@ -113,6 +119,25 @@ class SceneDataset:
             bank["rcond"] = self.conds["renderer"].copy()
         bank.update({k: v.copy() for k, v in self.camera_params.items()})
         return bank
+
+    def load_bank(self, bank: dict):
+        """Write a restored bank back (every checkpoint load does, as JAX's
+        dataset.py:191-198): the flat names of ``param_bank``, as numpy
+        arrays or tensors.  Readers of the host copy (the debug dump's
+        camera, the raster footprint, the texture CLI) then see the trained
+        camera, poses and trans.  Copies: a CPU tensor's numpy view would
+        follow the bank as it trains."""
+        def arr(v):
+            return np.array(v.detach().cpu() if hasattr(v, "detach") else v,
+                            np.float32)
+        self.poses = arr(bank["poses"]).reshape(self.poses.shape)
+        self.trans = arr(bank["trans"]).reshape(self.trans.shape)
+        for k in self.camera_params:
+            self.camera_params[k] = arr(bank[k]).reshape(
+                self.camera_params[k].shape)
+        for name, key in (("deformer", "dcond"), ("renderer", "rcond")):
+            if name in self.conds:
+                self.conds[name] = arr(bank[key])
 
     def window_indices(self, fids, batchsize: int):
         """(windows (B, batchsize), offsets (B,)): a window of frame ids
