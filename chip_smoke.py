@@ -37,6 +37,25 @@ Phases:
      bank written back); (b) phase 3's latest.pt with --sdf-model a bare SDF
      state_dict .pth (the IGR cache): the SDF must be the file's and Adam
      empty before the first step; each 12 + 12 splat launches;
+  3e. the three-stage schedule: phase 3's subject and its IGR and skinner
+     caches copied to a new root, a conf whose medium stage starts at
+     epoch 1 and fine at epoch 2 (every other key as config.conf), and the
+     train CLI with --max-epochs 2: 4 coarse steps (N = 3), 6 medium (N =
+     2, radius 0.00465, remesh_intersect 60) and 12 fine (N = 1), a remesh
+     at each stage's first step, coarse.pt and medium.pt at the boundaries
+     and latest.pt at the end, the fine epoch's debug dump; exactly 37
+     splat forward, 36 backward and 1 mesh launches; prints per stage the
+     median s/step, the remesh and the converged rays, and the frame-load
+     seconds of epoch 0 (cold decode) against epoch 1 (the dataset's
+     cache);
+  3f. the A/B tools through their entry points, one variant per call:
+     ``tools.ab_stage_resume`` from 3e's coarse.pt into one medium epoch
+     with 4 eval frames (base: 12 + 12 splat and 4 mesh launches;
+     ref_exact: 12 more mesh launches, the fragment seeds) and
+     ``tools.ab_convergence`` for 6 coarse steps on phase 3's subject and
+     IGR cache (base and cauchy: 18 + 18 splat and 8 mesh launches); every
+     maskE and ray_frac finite and in [0, 1], and a Cauchy variant must
+     converge a ray in some step; prints both tools' tables;
   4. inference path: ``selfreconcode_tpu_torch.cli.infer.main`` with
      --synthetic-body on phase 3's checkpoint, 2 frames (template remesh,
      Phong and def1 renders, maskE against the body's own silhouettes,
@@ -53,8 +72,9 @@ Phases:
      4e-6) and the aggregation of all 4 frames from the card's fragments
      and weights (texture and weight within 1e-6).
      Every path (the subject renders, coarse, fine, fragment steps, the
-     resumes, inference, the texture CLIs) runs with all launch counters
-     zeroed right before it and read right after, and must launch each
+     resumes, the schedule, each A/B variant, inference, the texture CLIs)
+     runs with all launch counters zeroed right before it and read right
+     after, and must launch each
      kernel it uses (splat forward and backward in training, the mesh
      kernel in the renders, the debug dump, fragment seeding, inference and
      the bake); the kernels line sums them;
@@ -148,8 +168,13 @@ WEIGHT_TOL = 4e-6       # bake weight |n.v|^8, card vs CPU, absolute: d/dx
 # output must be identical: hit mask, z, face id and barycentrics
 
 
+START = time.perf_counter()
+
+
 def phase(n, msg):
-    print(f"[phase {n}] {msg}", flush=True)
+    """The phase's banner, with the seconds since the script started."""
+    print(f"[phase {n}] {msg} (t = {time.perf_counter() - START:.1f} s)",
+          flush=True)
 
 
 def device_phase():
@@ -826,6 +851,182 @@ def interchange_path(workdir, trainer, paths):
     paths["resume --sdf-model"] = launched
 
 
+def exact_launches(path, launched, **want):
+    """Fail unless each named kernel launched exactly so often."""
+    need_launches(path, launched, **want)
+    off = {k: (launched[k], n) for k, n in want.items() if launched[k] != n}
+    if off:
+        raise AssertionError(f"{path}: kernels launched other than the path "
+                             f"needs, (launched, needed): {off}")
+
+
+def stage_conf(workdir, name, medium_at, fine_at):
+    """configs/config.conf with the medium and fine stages starting at
+    these epochs; every other key as it is."""
+    conf = open(osp.join(ROOT, "configs", "config.conf")).read()
+    for a, b in (("start_epoch = 6", f"start_epoch = {medium_at}"),
+                 ("start_epoch = 12", f"start_epoch = {fine_at}")):
+        if conf.count(a) != 1:
+            raise AssertionError(f"config.conf has no single '{a}'")
+        conf = conf.replace(a, b)
+    path = osp.join(workdir, name)
+    with open(path, "w") as f:
+        f.write(conf)
+    return path
+
+
+SCHEDULE = (("coarse", 3, 4), ("medium", 2, 6), ("fine", 1, 12))
+
+
+def time_loads(dataset, add):
+    """Wrap dataset.batch_raw so that add(seconds) gets each call's time."""
+    load = dataset.batch_raw
+
+    def timed(fids):
+        t0 = time.perf_counter()
+        out = load(fids)
+        add(time.perf_counter() - t0)
+        return out
+
+    dataset.batch_raw = timed
+
+
+def schedule_path(workdir, paths):
+    """Phase 3e: the three-stage schedule through the train CLI on a copy
+    of phase 3's subject and caches, with a conf whose medium stage starts
+    at epoch 1 and fine at epoch 2, for --max-epochs 2.  A tune hook marks
+    each stage's start and times the dataset's frame loads and the remesh
+    per stage.  Returns the run's root."""
+    import torch
+    from selfreconcode_tpu_torch.cli import train as cli
+    from selfreconcode_tpu_torch.engine.torch_compat import load_torch
+
+    root = osp.join(workdir, "schedule")
+    shutil.copytree(osp.join(workdir, "scene"), root,
+                    ignore=shutil.ignore_patterns("rec*"))
+    conf = stage_conf(workdir, "schedule.conf", 1, 2)
+    stages = []
+
+    def tune(t):
+        if not stages:
+            remesh = t.remesh
+
+            def timed_remesh(ratio):
+                out = remesh(ratio)
+                stages[-1]["remesh"].append((t.timings["remesh"], out[0]))
+                return out
+
+            time_loads(t.dataset, lambda s: stages[-1]["loads"].append(s))
+            t.remesh = timed_remesh
+        cfg = t.stage_cfg
+        stages.append({"name": cfg.name, "N": cfg.N, "radius": cfg.radius,
+                       "remesh_intersect": cfg.remesh_intersect,
+                       "P": t.rays_per_step(), "first": len(t.history),
+                       "loads": [], "remesh": []})
+
+    t0 = time.perf_counter()
+    tr, launched = counted(cli.main, [
+        "--conf", conf, "--data", root, "--save-folder", "rec",
+        "--max-epochs", "2", "--device", "cuda"], tune=tune)
+    wall = time.perf_counter() - t0
+    hist, steps = tr.history, tr.timings["steps"]
+    seen = [(s["name"], s["N"], s["radius"], s["remesh_intersect"], s["P"])
+            for s in stages]
+    for s in stages:
+        s["load_s"] = sum(s["loads"])
+    print(f"  stages (name, N, radius, remesh_intersect, rays): {seen}; "
+          f"whole run {wall:.1f} s", flush=True)
+    if [(s["name"], s["N"]) for s in stages] != [(n, N) for n, N, _ in
+                                                  SCHEDULE]:
+        raise AssertionError(f"not coarse N=3 -> medium N=2 -> fine N=1: "
+                             f"{stages}")
+    if stages[1]["radius"] != 0.00465 or stages[1]["remesh_intersect"] != 60:
+        raise AssertionError(f"medium stage settings: {stages[1]}")
+    bounds = [s["first"] for s in stages] + [len(hist)]
+    for s, (name, _, n), a, b in zip(stages, SCHEDULE, bounds, bounds[1:]):
+        check_steps(hist[a:b], s["P"], n, name)
+        rays = [int(h["ray_converged"]) for h in hist[a:b]]
+        print(f"  {name}: median step {statistics.median(steps[a:b]):.3f} s "
+              f"(steps {[round(x, 3) for x in steps[a:b]]}); remesh "
+              f"{[(round(r, 3), nv) for r, nv in s['remesh']]} (s, "
+              f"vertices); converged rays {rays} of {s['P']}; frame loads "
+              f"{s['load_s']:.3f} s", flush=True)
+        if len(s["remesh"]) != 1 or hist[a]["remesh"] != math.floor(
+                hist[a]["remesh"]):
+            raise AssertionError(f"{name}: not one remesh, at the stage's "
+                                 f"first step: {s['remesh']}")
+    print(f"  frame loads: epoch 0 {stages[0]['load_s']:.3f} s (cold: 12 "
+          f"frames decoded), epoch 1 {stages[1]['load_s']:.3f} s (the "
+          f"dataset's cache)", flush=True)
+    if abs(hist[0]["def_loss"]) > 1e-4:
+        raise AssertionError(f"def_loss at step 0 is {hist[0]['def_loss']}")
+    rec = osp.join(root, "rec")
+    for name, stage, epoch in (("coarse.pt", "coarse", 1),
+                               ("medium.pt", "medium", 2),
+                               ("latest.pt", "fine", 3)):
+        z = load_torch(osp.join(rec, name))
+        if (z["stage"], z["epoch"]) != (stage, epoch):
+            raise AssertionError(f"{name}: stage {z['stage']} epoch "
+                                 f"{z['epoch']}, not {stage} {epoch}")
+    ckpts = sorted(f for f in os.listdir(rec) if f.endswith(".pt"))
+    print(f"  checkpoints: {ckpts}; debug dump "
+          f"{sorted(os.listdir(osp.join(rec, 'debug')))}", flush=True)
+    # 12 frames a stage through the splat kernels, and the fine epoch's
+    # debug dump: one splat mask and one mesh raster of its one frame
+    exact_launches("schedule", launched, splat_fwd=37, splat_bwd=36,
+                   mesh_raster=1)
+    paths["schedule"] = launched
+    del tr
+    torch.cuda.empty_cache()
+    return root
+
+
+def ab_path(workdir, schedule_root, paths):
+    """Phase 3f: the two A/B tools through their entry points, one
+    variant a call so that each call's launches can be held to that
+    variant: ab_stage_resume from phase 3e's coarse.pt into one medium
+    epoch (base, ref_exact; 4 eval frames), and ab_convergence for 6
+    coarse steps on phase 3's subject and IGR cache (base, cauchy; 8 eval
+    frames)."""
+    from selfreconcode_tpu_torch.tools import ab_convergence as AB
+    from selfreconcode_tpu_torch.tools import ab_stage_resume as ABR
+
+    def drive(tool, argv, variants, want):
+        out = []
+        for v in variants:
+            (res,), launched = counted(tool.main, argv + ["--variants", v])
+            path = f"{tool.__name__.rsplit('.', 1)[1]} {v}"
+            exact_launches(path, launched, **want(v))
+            paths[path] = launched
+            bad = [k for k in ("maskE", "ray_frac")
+                   if not (math.isfinite(res[k]) and 0.0 <= res[k] <= 1.0)]
+            if bad or not all(math.isfinite(res[k]) for k in
+                              ("loss", "mask_loss", "color_loss")):
+                raise AssertionError(f"{v}: {res}")
+            if (AB.VARIANTS[v].get("surf_newton", True) is False
+                    and max(res["rays"]) < 1):
+                raise AssertionError(f"{v}: the Cauchy solve converged no "
+                                     f"ray in any step, so no IFT gradient "
+                                     f"ran: {res['rays']}")
+            out.append(res)
+        return out
+
+    resume = ["--root", schedule_root, "--ckpt", "coarse.pt", "--stage",
+              "medium", "--epochs", "1", "--eval-frames", "4", "--device",
+              "cuda"]
+    # one medium epoch of 12 frames, N = 2: 6 steps of 2 frames
+    res_r = drive(ABR, resume, ("base", "ref_exact"), lambda v: {
+        "splat_fwd": 12, "splat_bwd": 12,
+        "mesh_raster": 4 + (12 if v == "ref_exact" else 0)})
+    ABR.print_table(res_r, ABR.parse_args(resume))
+    conv = ["--steps", "6", "--root", osp.join(workdir, "scene"),
+            "--device", "cuda"]
+    # 6 coarse steps of 3 frames, then 8 eval frames
+    res_c = drive(AB, conv, ("base", "cauchy"), lambda v: {
+        "splat_fwd": 18, "splat_bwd": 18, "mesh_raster": 8})
+    AB.print_table(res_c)
+
+
 def write_uvmap(path, verts, faces):
     """A UV'd OBJ of the template (the file the reference asks its user to
     make): a cylindrical UV around the body's vertical axis, faces_vt =
@@ -951,20 +1152,25 @@ def fine_path(workdir, paths):
                   "initial_skinner_1_torch.pt"):
         shutil.copyfile(osp.join(workdir, "scene", cache),
                         osp.join(root, cache))
-    conf = open(osp.join(ROOT, "configs", "config.conf")).read()
-    for a, b in (("start_epoch = 6", "start_epoch = -1"),
-                 ("start_epoch = 12", "start_epoch = 0")):
-        if conf.count(a) != 1:
-            raise AssertionError(f"config.conf has no single '{a}'")
-        conf = conf.replace(a, b)
-    conf_path = osp.join(workdir, "fine.conf")
-    with open(conf_path, "w") as f:
-        f.write(conf)
+    conf_path = stage_conf(workdir, "fine.conf", -1, 0)
+    loads = []
+
+    def tune(t):    # called at the start (coarse) and at the fine switch
+        if t.stage_cfg.name == "fine":
+            time_loads(t.dataset, loads.append)
+
     t0 = time.perf_counter()
     trainer, launched = counted(cli.main, [
         "--conf", conf_path, "--data", root, "--save-folder", "rec",
-        "--synthetic-body", "--max-epochs", "0", "--device", "cuda"])
+        "--synthetic-body", "--max-epochs", "0", "--device", "cuda"],
+        tune=tune)
     wall = time.perf_counter() - t0
+    # epoch 0 of 4 one-frame steps: each 1080^2 frame decoded once (cold)
+    print(f"  frame loads (cold decode of 1080x1080 frames): "
+          f"{[round(x, 4) for x in loads]} s, {sum(loads) / len(loads):.4f} "
+          f"s a frame", flush=True)
+    if len(loads) != 4:
+        raise AssertionError(f"{len(loads)} frame loads, not 4")
     cfg = trainer.stage_cfg
     tmp = trainer.tmp
     print(f"  stage {cfg.name}: N={cfg.N}, {trainer.rays_per_step()} rays, "
@@ -1150,6 +1356,13 @@ def main(argv=None):
                     ".pth, then --sdf-model a bare SDF .pth")
         interchange_path(work, trainer, paths)
         del trainer
+        phase("3e", "the three-stage schedule: coarse -> medium -> fine on "
+                    "phase 3's subject, cli.train.main --max-epochs 2")
+        schedule_root = schedule_path(work, paths)
+        phase("3f", "the A/B tools: ab_stage_resume from 3e's coarse.pt "
+                    "(base, ref_exact), ab_convergence on phase 3's "
+                    "subject (base, cauchy)")
+        ab_path(work, schedule_root, paths)
         phase("3b", "fine stage: a 4-frame 1080x1080 subject, 4 fine steps "
                     "and the debug dump")
         fine = fine_path(work, paths)

@@ -2,12 +2,23 @@
 port of ``selfreconcode_tpu/engine/surface.py``).
 
 Each ray's canonical point p solves F(p, theta) = [sdf(p); v x (D(p) - c)] = 0
-by Gauss-Newton (p -= (B^T B)^-1 B^T F, B = dF/dp) for a fixed number of
-iterations (``optimize_surface_points``; at inference it may stop early).  The iterates carry no graph: every iteration differentiates F
-w.r.t. a fresh leaf copy of p only.  The gradient w.r.t. theta (SDF and
-translator parameters, dcond, poses, trans, rays, camera centre) is
-dp = -M dF/dtheta with M = (B^T B)^-1 B^T, masked to converged rays with an
-invertible B^T B.  It is attached without an autograd.Function:
+for a fixed number of iterations (``optimize_surface_points``; at inference
+it may stop early), by one of two solvers:
+
+* Gauss-Newton (``newton=True``, the default): p -= (B^T B)^-1 B^T F,
+  B = dF/dp, each step clipped to ``step_clip``;
+* the reference's Cauchy step (``newton=False``, utils/FindSurfacePs.py:
+  114-163): p += t g with g = dL/dp and t = -L / |g|^2 on the scalar
+  L = W1 |sdf| + W2 sin(angle).  Its ray term is ~10x weaker than the sdf
+  term, so it 2-cycles and converges fewer rays; the A/B tools
+  (``tools/``) select it through ``StageStatic.surf_newton``.
+
+The iterates carry no graph: every iteration differentiates w.r.t. a fresh
+leaf copy of p only.  Whichever solver ran, the gradient w.r.t. theta (SDF
+and translator parameters, dcond, poses, trans, rays, camera centre) is
+dp = -M dF/dtheta with M = (B^T B)^-1 B^T and B at the solver's point,
+masked to converged rays with an invertible B^T B.  It is attached without
+an autograd.Function:
 
     p = p* + (corr - corr.detach()),   corr = -M F(p*, theta)
 
@@ -29,11 +40,13 @@ class SurfaceConfig(NamedTuple):
     n_iters: int = 10
     dthreshold: float = 5e-5
     athreshold_deg: float = 0.02   # from camera.ang_threshold
-    step_clip: float = 0.1         # max per-iteration displacement
+    newton: bool = True            # False: the reference's Cauchy step
+    step_clip: float = 0.1         # max per-iteration displacement (Newton)
     # early_exit=True stops once every point has converged (a host check of
-    # done.all() per iteration; done points no longer move, so the result
-    # is the same).  On at inference, where 30 iterations are asked for and
-    # Newton converges in a few; off in training, which wants no host sync.
+    # done.all() per iteration, in either solver; done points no longer
+    # move, so the result is the same).  On at inference, where 30
+    # iterations are asked for and Newton converges in a few; off in
+    # training, which wants no host sync.
     early_exit: bool = False
 
 
@@ -69,12 +82,35 @@ def _constraint_and_B(nets, pts, batch_inds, dcond, poses, trans, rays,
     return F, B, sdf.detach(), sin_ang
 
 
-def _newton(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond, poses,
-            trans, rays, cam_c, init_pts, batch_inds):
+# The Cauchy step's loss weights (utils/FindSurfacePs.py:114-163).
+W1, W2 = 3.05, 1.0
+
+
+def _point_losses(nets, pts, batch_inds, dcond, poses, trans, rays, cam_c,
+                  ratio_sdf, ratio_def):
+    """The Cauchy step's per-point loss W1 |sdf| + W2 sin(angle), sdf and
+    sin(angle) at pts.  Unlike ``_constraint``'s, this sine is
+    |(D - c) x v| / |D - c| with no division by |v| (JAX surface.py:
+    66-75)."""
+    sdf_net, translator, skinner = nets
+    sdf = sdf_net(pts, ratio_sdf)[0]
+    d, _ = deformer_apply(translator, skinner, pts, batch_inds, dcond, poses,
+                          trans, ratio_def)
+    direct = d - cam_c[None, :]
+    sin_ang = (torch.linalg.norm(torch.linalg.cross(direct, rays), dim=-1)
+               / torch.linalg.norm(direct, dim=-1).clamp_min(1e-12))
+    return W1 * sdf.abs() + W2 * sin_ang, sdf, sin_ang
+
+
+def _detached(dcond, poses, trans, rays, cam_c):
+    return dict(dcond=dcond.detach(), poses=poses.detach(),
+                trans=trans.detach(), rays=rays.detach(),
+                cam_c=cam_c.detach())
+
+
+def _newton(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, det, init_pts,
+            batch_inds):
     """The Newton loop on detached inputs: (pts, converged, B at pts)."""
-    det = dict(dcond=dcond.detach(), poses=poses.detach(),
-               trans=trans.detach(), rays=rays.detach(),
-               cam_c=cam_c.detach())
     pts = init_pts.detach()
     done = torch.zeros(pts.shape[0], dtype=torch.bool, device=pts.device)
     eye = torch.eye(3, dtype=pts.dtype, device=pts.device)
@@ -98,22 +134,57 @@ def _newton(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond, poses,
     return pts, done | _converged(sdf, sin_ang, cfg), B
 
 
+def _cauchy(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, det, init_pts,
+            batch_inds):
+    """The reference's Cauchy loop on detached inputs (JAX surface.py:
+    93-120): (pts, converged).  Convergence is tested at the start point
+    and after every step; a converged point stays where it is.  One pass
+    at each iterate gives both its convergence test and its gradient, so
+    the loop evaluates the losses n_iters + 1 times where JAX's body
+    evaluates them twice per iteration; the values are the same."""
+    pts = init_pts.detach()
+    done = None
+    for i in range(cfg.n_iters + 1):
+        step = i < cfg.n_iters
+        with torch.set_grad_enabled(step):
+            p = pts.detach().requires_grad_(step)
+            loss, sdf, sin_ang = _point_losses(nets, p, batch_inds,
+                                               ratio_sdf=ratio_sdf,
+                                               ratio_def=ratio_def, **det)
+        now = _converged(sdf.detach(), sin_ang.detach(), cfg)
+        done = now if done is None else done | now
+        if not step or (cfg.early_exit and bool(done.all())):
+            break
+        (g,) = torch.autograd.grad(loss.sum(), p)
+        t = -loss.detach() / (g * g).sum(-1).clamp_min(1e-20)
+        pts = torch.where(done[:, None], pts, pts + t[:, None] * g)
+    return pts, done
+
+
 def optimize_surface_points(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def,
                             dcond, poses, trans, rays, cam_c, init_pts,
                             batch_inds):
-    """The Newton solve alone, without a gradient: (pts (N,3), converged
-    mask (N,))."""
-    pts, done, _ = _newton(nets, cfg, ratio_sdf, ratio_def, dcond, poses,
-                           trans, rays, cam_c, init_pts, batch_inds)
-    return pts, done
+    """The surface solve alone, without a gradient, by the solver cfg
+    names: (pts (N,3), converged mask (N,))."""
+    solver = _newton if cfg.newton else _cauchy
+    return solver(nets, cfg, ratio_sdf, ratio_def,
+                  _detached(dcond, poses, trans, rays, cam_c), init_pts,
+                  batch_inds)[:2]
 
 
 def surface_points(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond,
                    poses, trans, rays, cam_c, init_pts, batch_inds):
     """nets = (sdf_net, translator, skinner).  Returns (pts (N,3) carrying
     the IFT gradient, converged mask (N,))."""
-    pts, done, B = _newton(nets, cfg, ratio_sdf, ratio_def, dcond, poses,
-                           trans, rays, cam_c, init_pts, batch_inds)
+    det = _detached(dcond, poses, trans, rays, cam_c)
+    if cfg.newton:
+        pts, done, B = _newton(nets, cfg, ratio_sdf, ratio_def, det,
+                               init_pts, batch_inds)
+    else:
+        pts, done = _cauchy(nets, cfg, ratio_sdf, ratio_def, det, init_pts,
+                            batch_inds)
+        B = _constraint_and_B(nets, pts, batch_inds, ratio_sdf=ratio_sdf,
+                              ratio_def=ratio_def, **det)[1]
 
     # IFT: M = (B^T B)^-1 B^T at the solution, masked like the JAX backward
     btb_inv, inv_ok = inv3x3(torch.einsum("nki,nkj->nij", B, B))

@@ -12,7 +12,8 @@ One step (``make_train_step``) is three passes:
          length, normal consistency) and deformation consistency; backward
          into the template verts (SGD with momentum 0.9, lr 0.05) and into
          the shared parameters;
-  outer  Newton surface points with the IFT gradient, eikonal, deformation
+  outer  surface points (Newton, or the reference's Cauchy step with
+         surf_newton=False) with the IFT gradient, eikonal, deformation
          regularizer, DCT prior, colour and normal losses, SDF anchor;
          backward, add to the inner gradients, mask frozen leaves, Adam.
 
@@ -101,6 +102,9 @@ class StageStatic:
     opt_cam_T: bool = True
     has_normals: bool = False
     surf_iters: int = 10
+    surf_newton: bool = True    # False: the reference's Cauchy surface
+                                # solve (utils/FindSurfacePs.py:114-163),
+                                # an A/B variant (tools/ab_convergence.py)
     point_inits: bool = True    # ray seeds by vertex projection (False: by
                                 # rasterized fragments, the reference's way)
     raster_footprint: int = 8   # picks the mesh raster cell (rasterize_mesh)
@@ -274,7 +278,8 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
     Updates the nets and the bank in place (Adam); after the call each leaf's
     .grad holds the masked inner + outer gradient the update used."""
     surf_cfg = SurfaceConfig(n_iters=cfg.surf_iters,
-                             athreshold_deg=ang_thresh_deg)
+                             athreshold_deg=ang_thresh_deg,
+                             newton=cfg.surf_newton)
     w = cfg.weights
     N, H, W = cfg.N, cfg.H, cfg.W
     P = cfg.rays()

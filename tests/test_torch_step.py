@@ -9,11 +9,19 @@ normal draws.  Sizes keep every top-k among valid entries (valid pixels
 >= P, template verts >= eik_tmp, anchor over all verts), where lax.top_k
 and torch.topk agree.
 
-Two more variants of the same step: the three mesh regularizers on (the
+Three more variants of the same step: the three mesh regularizers on (the
 config's coarse magnitudes made positive: Laplacian 10, edge 10, normal
-consistency 0.001; the JAX template gets its host-built edge topology), and
-ray seeding by rasterized fragments (point_inits=False, raster footprint 10:
-JAX's Pallas rasterizer in interpret mode, the port's plain version).
+consistency 0.001; the JAX template gets its host-built edge topology), ray
+seeding by rasterized fragments (point_inits=False, raster footprint 10:
+JAX's Pallas rasterizer in interpret mode, the port's plain version), and
+the reference's Cauchy surface solve (surf_newton=False), alone and with
+fragment seeds.  On the 32x32 scene the Cauchy solve from vertex seeds
+converges none of the 32 rays in 10 iterations on either side (Newton:
+all 32): a vertex seed lies up to half a 32 px pixel off its ray, and the
+step's ray term is ~10x weaker than its sdf term.  From fragment seeds on
+the 40x40 scene it converges 1 of 32 on both sides, so
+test_cauchy_step_gradients_match holds the IFT gradient at a Cauchy point
+through the whole step; test_torch_surface.py holds it ray by ray.
 
 Tolerances: every info loss 1e-4 relative; the summed inner + outer
 gradient before Adam 1e-3 * max|g| per leaf (float32 sums in another order
@@ -56,12 +64,14 @@ LR = 1e-3
 REGULARIZERS = dict(laplacian_weight=10.0, edge_weight=10.0,
                     norm_weight=0.001)
 VARIANTS = {"regularizers": {"weights": REGULARIZERS},
-            "fragments": {"point_inits": False}}
-# the fragment variant's scene: a 9^3 sweep over [-1, 1]^3 (156 vertices,
+            "fragments": {"point_inits": False},
+            "cauchy": {"surf_newton": False},
+            "cauchy_fragments": {"point_inits": False, "surf_newton": False}}
+# the fragment variants' scene: a 9^3 sweep over [-1, 1]^3 (156 vertices,
 # so EIK 128) seen at 40x40, where JAX's Pallas rasterizer drops no face
 # (its 256-entry cells overflow on the 33^3 template at 32x32)
-SCENES = {"fragments": dict(hw=40, res=((5, 5, 5), (9, 9, 9)), half=1.0,
-                            eik=128)}
+FRAGMENT_SCENE = dict(hw=40, res=((5, 5, 5), (9, 9, 9)), half=1.0, eik=128)
+SCENES = {"fragments": FRAGMENT_SCENE, "cauchy_fragments": FRAGMENT_SCENE}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -176,7 +186,7 @@ def run_step(root, variant=None):
         remesh_intersect=30, resolutions=cfg.resolutions,
         weights=cfg.weights, eik_tmp=cfg.eik_tmp, anchor_sub=0,
         window=cfg.window, has_normals=True, point_inits=cfg.point_inits,
-        raster_footprint=cfg.raster_footprint)
+        surf_newton=cfg.surf_newton, raster_footprint=cfg.raster_footprint)
     tstep = TTR.make_train_step(nets, port_skinner(s["jsk"]), tcfg,
                                 s["dctnull"], s["ang"], opt)
     tmp = port_template(s)
@@ -216,9 +226,9 @@ def test_step_losses_match(step_results):
 
 
 def test_variant_steps_match(variant_results):
-    """The regularizer and fragment-seeding variants: every loss (the new
-    pc_lap/edge/norm losses included) and the template after its SGD
-    step."""
+    """The regularizer, fragment-seeding and Cauchy variants: every loss
+    (the new pc_lap/edge/norm losses included) and the template after its
+    SGD step."""
     variant, r = variant_results
     ji, ti = r["jinfo"], r["info"]
     new = (("pc_lap_loss", "pc_edge_loss", "pc_norm_loss")
@@ -301,7 +311,21 @@ def _port_grads(r):
 
 
 def test_summed_gradients_match(step_results):
-    r = step_results
+    assert_gradients_match(step_results)
+
+
+@pytest.mark.parametrize("variant_results", ["cauchy_fragments"],
+                         indirect=True)
+def test_cauchy_step_gradients_match(variant_results):
+    """Fragment-seeded Cauchy points, some converged on both sides, so the
+    IFT gradient at a Cauchy point enters the compared gradients."""
+    _, r = variant_results
+    assert r["info"]["ray_converged"] > 0 and r["jinfo"]["ray_converged"] > 0
+    assert_gradients_match(r)
+
+
+def assert_gradients_match(r):
+    """The summed inner + outer gradient before Adam, per leaf."""
     jg_params, jg_bank = r["jg"]
     mine = _port_grads(r)
     for tower in ("sdf", "trans", "render"):

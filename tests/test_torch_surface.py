@@ -1,11 +1,21 @@
-"""Parity of the port's Newton surface points and their IFT gradient with
-the JAX ``make_surface_points_fn``, and a finite-difference check of the
-port's gradient against the exact root (as tests/test_surface.py does for
-JAX).
+"""Parity of the port's surface points (Newton, and the reference's Cauchy
+step with newton=False) and their IFT gradient with the JAX
+``make_surface_points_fn``, and a finite-difference check of the port's
+gradient against the exact root (as tests/test_surface.py does for JAX).
 
-Tolerances: points 1e-5 absolute (same iteration, float32); IFT gradients
-1e-4 relative to each leaf's largest entry (the backward solves a 3x3 system
-per ray and sums over rays in another order).
+Tolerances: Newton points 1e-5 absolute (same iteration, float32); IFT
+gradients 1e-4 relative to each leaf's largest entry, for either solver (the
+backward solves a 3x3 system per ray and sums over rays in another order).
+Cauchy points after 1-3 iterations within 1e-6 of the scene's scale (the
+largest |coordinate| of the start points) with identical done masks; after
+10 iterations the |sdf| kink and the 2-cycle of the ray term amplify
+rounding, so the done masks agree on >= 99% of the rays and the points
+within 1e-5 of the scale where both solvers converged.  The Cauchy cases
+start 1e-3 off each ray (the fixture says why).  A ray whose convergence
+test flips by rounding freezes one iteration apart in the two solvers, at
+another point of its 2-cycle: with start points 5e-4 off their rays one
+ray did, its two points 2.7e-5 apart, past the point tolerance; at 1e-3
+none does.
 """
 import jax
 import jax.numpy as jnp
@@ -19,7 +29,8 @@ from selfreconcode_tpu.models import sdf as JSDF
 from selfreconcode_tpu.models import skinner as JSK
 from selfreconcode_tpu.models import smpl as JSMPL
 from selfreconcode_tpu.models import translator as JT
-from selfreconcode_tpu_torch.engine.surface import SurfaceConfig, surface_points
+from selfreconcode_tpu_torch.engine.surface import (
+    SurfaceConfig, optimize_surface_points, surface_points)
 from selfreconcode_tpu_torch.interop import params_from_jax
 from selfreconcode_tpu_torch.models.deformer import deformer_apply
 from selfreconcode_tpu_torch.models.sdf import SDFNet
@@ -107,19 +118,25 @@ def setup():
     d = dict(init=init, binds=binds, dcond=dcond, poses=poses, trans=trans,
              cam_c=cam_c, rays=rays)
     d["target"] = rng.standard_normal((P, 3)).astype(np.float32)
+    # the Cauchy solve's start points: the rays pass through D(init), where
+    # sin(angle) ~ 1e-8 and the gradient of |(D - c) x v| points along
+    # float noise (the norm's kink at 0), so its steps would compare noise;
+    # 1e-3 off the ray (~0.2 px at 512^2 from 2.5 m) the term is smooth
+    d["init_off"] = (init + 1e-3 * rng.standard_normal((P, 3))).astype(
+        np.float32)
     return jnet, jsp, tnet_j, jtp, jdef, sdf, tnet, skinner, d
 
 
-def jax_run(setup):
+def jax_run(setup, newton=True, init="init"):
     jnet, jsp, tnet_j, jtp, jdef, *_, d = setup
-    cfg = JSURF.SurfaceConfig(n_iters=10)
+    cfg = JSURF.SurfaceConfig(n_iters=10, newton=newton)
     fn = JSURF.make_surface_points_fn(jnet, tnet_j, cfg)
     ratios = jnp.asarray([1.0, 1.0])
     args = {k: jnp.asarray(d[k]) for k in WRT}
 
     def loss(sp, tp, dcond, poses, trans, rays, cam_c):
         pts, done = fn(ratios, jdef, sp, tp, dcond, poses, trans, rays, cam_c,
-                       jnp.asarray(d["init"]), jnp.asarray(d["binds"]))
+                       jnp.asarray(d[init]), jnp.asarray(d["binds"]))
         w0 = jax.lax.stop_gradient(done).astype(jnp.float32)[:, None]
         return (w0 * pts * d["target"]).sum(), (pts, done)
 
@@ -133,13 +150,13 @@ def port_leaves(d):
     return {k: torch.tensor(d[k], requires_grad=True) for k in WRT}
 
 
-def port_run(setup, cfg=SurfaceConfig(n_iters=10), leaves=None):
+def port_run(setup, cfg=SurfaceConfig(n_iters=10), leaves=None, init="init"):
     *_, sdf, tnet, skinner, d = setup
     lv = leaves if leaves is not None else port_leaves(d)
     pts, done = surface_points((sdf, tnet, skinner), cfg, 1.0, 1.0,
                                lv["dcond"], lv["poses"], lv["trans"],
                                lv["rays"], lv["cam_c"],
-                               torch.tensor(d["init"]),
+                               torch.tensor(d[init]),
                                torch.tensor(d["binds"]).long())
     return pts, done, lv
 
@@ -153,12 +170,15 @@ def test_newton_points_and_converged_mask(setup):
                                atol=1e-5)
 
 
-def test_ift_gradients_match_jax(setup):
+def check_ift_gradients(setup, newton, init):
     *_, sdf, tnet, skinner, d = setup
-    _, jdone, jg = jax_run(setup)
+    _, jdone, jg = jax_run(setup, newton, init)
     for net in (sdf, tnet):
         net.zero_grad()
-    pts, done, lv = port_run(setup)
+    pts, done, lv = port_run(setup, SurfaceConfig(n_iters=10, newton=newton),
+                             init=init)
+    np.testing.assert_array_equal(done.numpy(), jdone)
+    assert jdone.any()
     w0 = done.float()[:, None]
     (w0 * pts * torch.tensor(d["target"])).sum().backward()
 
@@ -178,6 +198,71 @@ def test_ift_gradients_match_jax(setup):
         check(layer["b"], getattr(tnet, f"lin{l}").bias.grad)
     for k, ref in zip(WRT, jg[2:]):
         check(ref, lv[k].grad)
+
+
+def test_ift_gradients_match_jax(setup):
+    check_ift_gradients(setup, newton=True, init="init")
+
+
+def test_ift_gradients_match_jax_at_the_cauchy_point(setup):
+    """JAX's backward rebuilds B at the solver's point whichever solver
+    ran; the port's correction does the same at the Cauchy point."""
+    check_ift_gradients(setup, newton=False, init="init_off")
+
+
+def cauchy_points(setup, n_iters):
+    """JAX's and the port's Cauchy solve (optimize_surface_points, no
+    gradient) from the same start points: ((pts, done) JAX, port)."""
+    jnet, jsp, tnet_j, jtp, jdef, sdf, tnet, skinner, d = setup
+    j = JSURF.optimize_surface_points(
+        jsp, jtp, jnet, jdef, jnp.asarray(d["init_off"]),
+        jnp.asarray(d["binds"]),
+        *(jnp.asarray(d[k]) for k in WRT), 1.0, 1.0,
+        JSURF.SurfaceConfig(n_iters=n_iters, newton=False))
+    t = optimize_surface_points(
+        (sdf, tnet, skinner), SurfaceConfig(n_iters=n_iters, newton=False),
+        1.0, 1.0, *(torch.tensor(d[k]) for k in WRT),
+        torch.tensor(d["init_off"]), torch.tensor(d["binds"]).long())
+    return ((np.asarray(j[0]), np.asarray(j[1])),
+            (t[0].numpy(), t[1].numpy()))
+
+
+@pytest.mark.parametrize("n_iters", [1, 2, 3])
+def test_cauchy_first_iterations_match_jax(setup, n_iters):
+    *_, d = setup
+    scale = float(np.abs(d["init_off"]).max())
+    (jpts, jdone), (pts, done) = cauchy_points(setup, n_iters)
+    np.testing.assert_array_equal(done, jdone)
+    np.testing.assert_allclose(pts, jpts, rtol=0, atol=1e-6 * scale)
+    # the points moved: a solve, not the start points handed back
+    assert np.abs(pts - d["init_off"]).max() > 1e-4 * scale
+
+
+def test_cauchy_ten_iterations_match_jax(setup):
+    *_, d = setup
+    scale = float(np.abs(d["init_off"]).max())
+    (jpts, jdone), (pts, done) = cauchy_points(setup, 10)
+    assert (done == jdone).mean() >= 0.99
+    both = done & jdone
+    assert both.any()
+    np.testing.assert_allclose(pts[both], jpts[both], rtol=0,
+                               atol=1e-5 * scale)
+
+
+def test_cauchy_early_exit_is_the_same_solve(setup):
+    """early_exit stops the Cauchy loop once every ray has converged; done
+    rays no longer move, so points and masks equal the fixed-count loop's
+    (loose thresholds, so that every ray converges within the 10)."""
+    *_, sdf, tnet, skinner, d = setup
+    args = ((sdf, tnet, skinner),)
+    rest = (1.0, 1.0, *(torch.tensor(d[k]) for k in WRT),
+            torch.tensor(d["init_off"]), torch.tensor(d["binds"]).long())
+    kw = dict(n_iters=10, newton=False, dthreshold=1e-2, athreshold_deg=2.0)
+    full = optimize_surface_points(*args, SurfaceConfig(**kw), *rest)
+    early = optimize_surface_points(
+        *args, SurfaceConfig(**kw, early_exit=True), *rest)
+    assert bool(full[1].all())
+    assert torch.equal(full[0], early[0]) and torch.equal(full[1], early[1])
 
 
 @pytest.mark.parametrize("wrt", ["dcond", "trans", "cam_c", "rays"])
