@@ -23,7 +23,10 @@ Phases:
      IGR), and a conf with the medium stage off and the fine stage from
      epoch 0, run with --synthetic-body: 4 fine steps (N = 1, 6144 rays,
      radius 0.0041, octree up to 321x417x225), the CLI's debug dump right
-     after the first;
+     after the first; prints the dataset's decoder, and when it is the
+     native loader (``data/native_loader.py``, built with g++ at first
+     use) holds each of the 4 frames (image, mask, normal) bitwise equal
+     to cv2's decode and times a cold frame both ways;
   3c. on phase 3b's trainer, 2 steps with rays seeded from rasterized
      fragments (point_inits=False: one mesh-kernel launch per step) and the
      three mesh regularizers on, at config.conf's coarse magnitudes made
@@ -56,6 +59,19 @@ Phases:
      IGR cache (base and cauchy: 18 + 18 splat and 8 mesh launches); every
      maskE and ray_frac finite and in [0, 1], and a Cauchy variant must
      converge a ray in some step; prints both tools' tables;
+  3g. data parallel: phase 3's subject and caches copied, one coarse
+     epoch (4 steps) through the train CLI without --mesh (the plain
+     path) and with --mesh dp=1 (one spawned rank over NCCL; its
+     launches, history and step seconds come back through the tune hook
+     ``StepRecorder``), each with torch's default algorithms and with its
+     deterministic ones: exactly 12 + 12 splat and 0 mesh launches each;
+     with the deterministic algorithms every info value of every step of
+     dp=1 must be the plain run's bit for bit (with the default ones the
+     colour and normal losses' per-frame index_add sums differ in their
+     last bits from run to run: the script prints which values differ and
+     by how much); prints s/step, the process group's set-up seconds and
+     the bytes one step all-reduces; with a second card, dp=2 against
+     dp=1;
   4. inference path: ``selfreconcode_tpu_torch.cli.infer.main`` with
      --synthetic-body on phase 3's checkpoint, 2 frames (template remesh,
      Phong and def1 renders, maskE against the body's own silhouettes,
@@ -981,6 +997,163 @@ def schedule_path(workdir, paths):
     return root
 
 
+class StepRecorder:
+    """The train CLI's tune hook for phase 3g; picklable, so a --mesh
+    rank receives it.  With `deterministic` it switches torch to its
+    deterministic algorithms before the steps, in whichever process runs
+    them (the caller switches them off again).  On rank 0 it zeroes the
+    launch counters before the first step and, after each step, writes the
+    history, the step seconds, the process group's set-up seconds and the
+    launch counts to `path` (a --mesh run's trainer lives in its spawned
+    rank)."""
+
+    def __init__(self, path, deterministic):
+        self.path = path
+        self.deterministic = deterministic
+
+    def __call__(self, trainer):
+        import torch
+        from selfreconcode_tpu_torch import parallel as D
+        from selfreconcode_tpu_torch.ops import mesh_kernels as MK
+        from selfreconcode_tpu_torch.ops import splat_kernels as SK
+        if self.deterministic:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+            torch.use_deterministic_algorithms(True, warn_only=True)
+        if not D.is_main():
+            return
+        SK.launches.reset()
+        MK.launches.reset()
+        step = trainer.train_step
+
+        def recorded(*args, **kw):
+            info = step(*args, **kw)
+            torch.cuda.synchronize()
+            sk = SK.launches
+            with open(self.path, "w") as f:
+                json.dump({"history": trainer.history,
+                           "steps": trainer.timings["steps"],
+                           "dp_setup": trainer.timings.get("dp_setup"),
+                           "launches": {
+                               "mesh_raster":
+                                   MK.launches.mesh_raster_launches,
+                               "splat_fwd_cells":
+                                   sk.splat_fwd_cells_launches,
+                               "splat_fwd": sk.splat_fwd_launches,
+                               "splat_bwd": sk.splat_bwd_launches,
+                               "splat_bwd_cells":
+                                   sk.splat_bwd_cells_launches}}, f)
+            return info
+
+        trainer.train_step = recorded
+
+
+def allreduce_bytes(trainer):
+    """The float32 entries one data-parallel step all-reduces: every
+    gradient of the nets and the bank, a has-gradient flag per leaf, and
+    each info value with its presence flag."""
+    from selfreconcode_tpu_torch.engine.trainer import STEP_INFO_KEYS
+    nets = {name: sum(p.numel() for p in net.parameters()) for name, net in
+            (("SDF", trainer.nets.sdf),
+             ("translator", trainer.nets.translator),
+             ("colour", trainer.nets.netRender))}
+    bank = sum(v.numel() for v in trainer.bank.values())
+    leaves = sum(1 for g in trainer.optimizer.param_groups
+                 for _ in g["params"])
+    entries = sum(nets.values()) + bank + leaves + 2 * len(STEP_INFO_KEYS)
+    return nets, bank, 4 * entries
+
+
+def dp_path(workdir, paths):
+    """Phase 3g: one coarse epoch of phase 3's subject, with its IGR and
+    skinner caches, through the train CLI without --mesh and with --mesh
+    dp=1 (one spawned rank over NCCL), each with torch's default
+    algorithms and with its deterministic ones; with a second card, dp=2
+    as well.  The plain path's colour and normal losses sum each frame's
+    rays with index_add's float atomics, so two runs of it differ in
+    those sums' last bits; with the deterministic algorithms the dp=1 run
+    must give every info value of every step bit for bit."""
+    import torch
+    from selfreconcode_tpu_torch.cli import train as cli
+
+    mesh1 = ["--mesh", "dp=1"]
+    runs = [("plain", [], False), ("dp=1", mesh1, False),
+            ("plain, deterministic", [], True),
+            ("dp=1, deterministic", mesh1, True)]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("dp=2, deterministic", ["--mesh", "dp=2"], True))
+    else:
+        print(f"  dp=2 skipped: {torch.cuda.device_count()} card(s), it "
+              f"needs 2", flush=True)
+    out = {}
+    for tag, extra, det in runs:
+        root = osp.join(workdir, "dp_" + re.sub(r"\W+", "_", tag))
+        shutil.copytree(osp.join(workdir, "scene"), root,
+                        ignore=shutil.ignore_patterns("rec*"))
+        record = root + ".json"
+        t0 = time.perf_counter()
+        try:
+            tr, launched = counted(cli.main, [
+                "--conf", osp.join(ROOT, "configs", "config.conf"), "--data",
+                root, "--save-folder", "rec", "--max-epochs", "0",
+                "--device", "cuda"] + extra, tune=StepRecorder(record, det))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        wall = time.perf_counter() - t0
+        rec = json.load(open(record))
+        if extra:
+            if tr is not None or any(launched.values()):
+                raise AssertionError(f"{tag}: main returned {tr}, launches "
+                                     f"in the calling process {launched}")
+            launched = rec["launches"]
+        elif launched != rec["launches"]:
+            raise AssertionError(f"{tag}: launches {launched} != the "
+                                 f"steps' {rec['launches']}")
+        check_steps(rec["history"], 6144, 4, tag)
+        exact_launches(tag, launched, splat_fwd=12, splat_bwd=12,
+                       mesh_raster=0)
+        paths[f"3g {tag}"] = launched
+        setup = ("" if rec["dp_setup"] is None else
+                 f"; process group set up in {rec['dp_setup']:.3f} s")
+        print(f"  {tag}: median step {statistics.median(rec['steps']):.3f} "
+              f"s (steps {[round(x, 3) for x in rec['steps']]}); whole CLI "
+              f"run {wall:.1f} s{setup}", flush=True)
+        if tag == "plain":
+            nets, bank, nbytes = allreduce_bytes(tr)
+            print(f"  one data-parallel step all-reduces {nbytes} bytes: "
+                  f"parameters {nets} (float32), bank {bank}, flags and "
+                  f"info", flush=True)
+        out[tag] = rec["history"]
+
+    def differing(a, b):
+        """{key: largest relative difference over the steps} where the
+        two histories differ."""
+        rel = {}
+        for x, y in zip(a, b):
+            for k in x:
+                if x[k] != y[k]:
+                    rel[k] = max(rel.get(k, 0.0),
+                                 abs(x[k] - y[k]) / max(abs(x[k]), 1e-30))
+        return {k: float(f"{v:.3e}") for k, v in rel.items()}
+
+    for a, b in (("plain", "dp=1"), ("plain", "plain, deterministic"),
+                 ("plain, deterministic", "dp=1, deterministic")):
+        diff = differing(out[a], out[b])
+        print(f"  {b} vs {a}: info values that differ (largest relative "
+              f"difference over the 4 steps): {diff or 'none, bit for bit'}"
+              f"; losses {[h['loss'] for h in out[b]]}", flush=True)
+    if out["dp=1, deterministic"] != out["plain, deterministic"]:
+        raise AssertionError("with deterministic algorithms the dp=1 run "
+                             "is not the plain run bit for bit")
+    if "dp=2, deterministic" in out:
+        rel = max(abs(a["loss"] - b["loss"]) / abs(a["loss"])
+                  for a, b in zip(out["dp=1, deterministic"],
+                                  out["dp=2, deterministic"]))
+        print(f"  dp=2 vs dp=1: largest relative loss difference "
+              f"{rel:.3e}", flush=True)
+        if rel > 1e-3:
+            raise AssertionError(f"dp=2 losses differ from dp=1's by {rel}")
+
+
 def ab_path(workdir, schedule_root, paths):
     """Phase 3f: the two A/B tools through their entry points, one
     variant a call so that each call's launches can be held to that
@@ -1194,7 +1367,40 @@ def fine_path(workdir, paths):
         raise AssertionError(f"debug dump {sorted(have)} != {sorted(want)}")
     need_launches("fine", launched, splat_fwd=5, splat_bwd=4, mesh_raster=1)
     paths["fine"] = launched
+    decoders(root, trainer.dataset)
     return trainer
+
+
+def decoders(root, dataset):
+    """Phase 3b's loader check: the trainer's decoder; when it is the
+    native loader, each 1080^2 frame (image, mask, normal) decoded by it
+    must be bitwise cv2's, and a cold frame is timed both ways (a fresh
+    dataset each, one frame a call)."""
+    import numpy as np
+    from selfreconcode_tpu_torch.data.dataset import SceneDataset
+    print(f"  frames decoded by: {dataset.decoder}", flush=True)
+    if dataset.decoder != "native":
+        return
+    nat = SceneDataset(root, use_native=True)
+    ref = SceneDataset(root, use_native=False)
+    times = {"native": [], "cv2": []}
+    for fid in range(dataset.frame_num):
+        got = {}
+        for name, ds in (("native", nat), ("cv2", ref)):
+            t0 = time.perf_counter()
+            got[name] = ds.frame_data(fid)
+            times[name].append(time.perf_counter() - t0)
+        a, b = got["native"], got["cv2"]
+        if a.keys() != b.keys() or "normal" not in a or not all(
+                np.array_equal(a[k], b[k]) for k in a):
+            raise AssertionError(f"frame {fid}: the native decode "
+                                 f"({sorted(a)}) is not cv2's ({sorted(b)})")
+    print(f"  native frames bitwise equal to cv2's (image, mask, normal) "
+          f"for all {dataset.frame_num}; cold 1080x1080 frame: native "
+          f"{[round(t, 4) for t in times['native']]} s (mean "
+          f"{statistics.mean(times['native']):.4f}), cv2 "
+          f"{[round(t, 4) for t in times['cv2']]} s (mean "
+          f"{statistics.mean(times['cv2']):.4f})", flush=True)
 
 
 def fragment_path(trainer, paths):
@@ -1363,6 +1569,9 @@ def main(argv=None):
                     "(base, ref_exact), ab_convergence on phase 3's "
                     "subject (base, cauchy)")
         ab_path(work, schedule_root, paths)
+        phase("3g", "data parallel: one coarse epoch of phase 3's subject "
+                    "through cli.train.main, plain and --mesh dp=1 (NCCL)")
+        dp_path(work, paths)
         phase("3b", "fine stage: a 4-frame 1080x1080 subject, 4 fine steps "
                     "and the debug dump")
         fine = fine_path(work, paths)

@@ -11,13 +11,22 @@ debug dump (``Trainer.save_debug``) into <data>/<save-folder>.  Runs on one
 CUDA device and never falls back to the CPU; ``--device cpu`` is for tests.
 TF32 is switched off for matmuls and cuDNN at start, so float32 stays
 float32.
+
+``--mesh dp=N`` trains data-parallel (``parallel/sharded.py``): the CLI
+spawns N processes, rank r on cuda:r over NCCL (``--device cpu``: gloo),
+rendezvous through a FileStore in the save folder.  Rank 0 alone builds
+the skinner and IGR caches (the others then load them), prints the report
+and writes the checkpoints and the debug dump.  A rank that fails fails
+the CLI.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import os.path as osp
+import re
 import shutil
+import sys
 import time
 
 import numpy as np
@@ -57,7 +66,11 @@ def parse_args(argv=None):
                         "(models/synthetic_body.py)")
     p.add_argument("--max-epochs", type=int, default=None,
                    help="cap epochs (debug)")
-    p.add_argument("--mesh", default=None, help="not supported (one GPU)")
+    p.add_argument("--mesh", default=None, metavar="dp=N",
+                   help="train data-parallel over N processes, one device "
+                        "each (cuda:0..N-1 over NCCL; gloo with --device "
+                        "cpu): rays sharded, parameters replicated, one "
+                        "gradient all-reduce per step")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda)")
     args = p.parse_args(argv)
@@ -65,9 +78,32 @@ def parse_args(argv=None):
         p.error("--gpu-ids is not supported; choose the card with --device "
                 "(e.g. --device cuda:1)")
     if args.mesh is not None:
-        p.error("--mesh (data parallel) is not ported yet; the port trains "
-                "on one GPU")
+        m = re.fullmatch(r"(?:dp=)?(\d+)", args.mesh)
+        if m is None or int(m.group(1)) < 1:
+            p.error(f"--mesh takes dp=N with N >= 1, not {args.mesh!r}")
+        if args.device not in ("cuda", "cpu"):
+            p.error("--mesh places rank r on cuda:r; pass --device cuda (or "
+                    "cpu)")
+        args.dp = int(m.group(1))
     return args
+
+
+def check_mesh(args):
+    """JAX's conditions on --mesh dp=N (its cli/train.py:101-108): N
+    devices, and an image height divisible by N."""
+    import torch
+    from ..data.dataset import SceneDataset
+    n = args.dp
+    if args.device == "cuda":
+        open_device("cuda")
+        found = torch.cuda.device_count()
+        if found < n:
+            raise ValueError(f"--mesh dp={n} needs {n} devices, found "
+                             f"{found} (cuda)")
+    height = SceneDataset(args.data, use_native=False).H
+    if height % n:
+        raise ValueError(f"image height {height} must divide by dp={n} "
+                         f"(rows are sharded over the mesh)")
 
 
 def open_device(name: str):
@@ -98,63 +134,116 @@ def load_body(args, gender: str):
 
 
 def main(argv=None, resolutions=None, skinner_res=None, tune=None):
-    """CLI entry; returns the Trainer.  The keyword extras are test
-    injection points: `resolutions` replaces the octree schedule,
-    `skinner_res` the LBS volume size, and `tune(trainer)` runs right before
-    the epoch loop and after each stage switch."""
+    """CLI entry; returns the Trainer (None under --mesh, where rank 0's
+    checkpoint is the result).  The keyword extras are test injection
+    points: `resolutions` replaces the octree schedule, `skinner_res` the
+    LBS volume size, and `tune(trainer)` runs right before the epoch loop
+    and after each stage switch (on every rank under --mesh; it must then
+    be picklable)."""
     args = parse_args(argv)
+    if args.mesh is None:
+        return train(args, resolutions, skinner_res, tune)
+    check_mesh(args)
+    import torch.multiprocessing as mp
+    save_root = osp.join(args.data, args.save_folder)
+    os.makedirs(save_root, exist_ok=True)
+    store = osp.join(save_root, ".dp_store")
+    if osp.exists(store):
+        os.remove(store)
+    try:
+        mp.start_processes(_rank_main, nprocs=args.dp, join=True,
+                           start_method="spawn",
+                           args=(argv, store, resolutions, skinner_res, tune))
+    finally:
+        if osp.exists(store):
+            os.remove(store)
+    return None
+
+
+def _rank_main(rank, argv, store, resolutions, skinner_res, tune):
+    """One spawned rank of --mesh dp=N: join the group, train, leave."""
+    from .. import parallel as D
+    args = parse_args(argv)
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    setup_s = D.init_dp(rank, args.dp, args.device, store)
+    try:
+        train(args, resolutions, skinner_res, tune, dp_setup_s=setup_s)
+    finally:
+        D.shutdown()
+
+
+def train(args, resolutions=None, skinner_res=None, tune=None,
+          dp_setup_s=None):
+    """The training run of main; under --mesh one rank's (dp_setup_s: the
+    seconds its process group took to set up)."""
+    from .. import parallel as D
     from ..config import parse_file
     from ..data.dataset import RandomSampler, SceneDataset, batch_iterator
     from ..engine.checkpoint import (load_checkpoint, load_sdf_state,
                                      save_checkpoint)
     from ..engine.trainer import Trainer
 
-    device = open_device(args.device)
+    name = args.device
+    if dp_setup_s is not None and name == "cuda":
+        name = f"cuda:{D.rank()}"       # rank r trains on cuda:r
+    device = open_device(name)
     conf = parse_file(args.conf)
     data_root = args.data
     save_root = osp.join(data_root, args.save_folder)
     debug_root = osp.join(save_root, "debug")
-    os.makedirs(debug_root, exist_ok=True)
-    shutil.copyfile(args.conf, osp.join(save_root, "config.conf"))
+    if D.is_main():
+        os.makedirs(debug_root, exist_ok=True)
+        shutil.copyfile(args.conf, osp.join(save_root, "config.conf"))
 
     conds = {"deformer": conf.get_int("mlp_deformer.condlen"),
              "renderer": conf.get_int("render_net.condlen")}
-    dataset = SceneDataset(data_root, conds)
-    print(f"scene data use {dataset.gender} smpl; {dataset.frame_num} frames "
-          f"{dataset.H}x{dataset.W}; device {device}", flush=True)
-    smpl = load_body(args, dataset.gender)
-
     res_sched = resolutions or RESOLUTIONS
     kw = {"skinner_res": skinner_res} if skinner_res else {}
-    trainer = Trainer(dataset, smpl, conf, res_sched, data_root=data_root,
-                      device=device, **kw)
-    print("box:", trainer.b_min.tolist(), trainer.b_max.tolist(), flush=True)
-
     start_epoch = 0
     pose_type = conf.get_int("train.skinner_pose_type")
     multires = conf.get_int("sdf_net.multires")
-    if args.model and osp.isfile(args.model):
-        print("load model:", args.model, flush=True)
-        sdf_sub = None
-        if args.sdf_model and osp.isfile(args.sdf_model):
-            # a port .pt, a reference .pth (full or a bare SDF state_dict)
-            # or a JAX pickle (JAX's cli/train.py:119-132)
-            sdf_sub = load_sdf_state(args.sdf_model)
-        start_epoch = load_checkpoint(args.model, trainer, sdf_state=sdf_sub)
-    else:
-        cache = osp.join(data_root,
-                         f"initial_sdf_idr_{multires}_{pose_type}_torch.pt")
-        info = trainer.initialize_sdf(abs(conf.get_int("train.initial_iters")),
-                                      cache_path=cache)
-        print("initial sdf:", info, flush=True)
-        if not info.get("cached"):
-            # the initial iso-surface, for inspection (train.py:129-132)
-            from ..utils.meshops import write_mesh
-            mc = trainer.discretize_sdf(0.0, resolutions=res_sched["coarse"])
-            write_mesh(osp.join(data_root, f"initial_sdf_idr_{multires}_"
-                                           f"{pose_type}_torch.ply"),
-                       mc.verts, mc.faces)
-            print(f"initial mesh: {mc.verts.shape[0]} verts", flush=True)
+    # under --mesh rank 0 runs the set-up first and writes the skinner and
+    # IGR caches; the other ranks then load them
+    with D.main_first():
+        dataset = SceneDataset(data_root, conds)
+        print(f"scene data use {dataset.gender} smpl; {dataset.frame_num} "
+              f"frames {dataset.H}x{dataset.W}; device {device}; frames "
+              f"decoded by {dataset.decoder}", flush=True)
+        smpl = load_body(args, dataset.gender)
+        trainer = Trainer(dataset, smpl, conf, res_sched,
+                          data_root=data_root, device=device, **kw)
+        print("box:", trainer.b_min.tolist(), trainer.b_max.tolist(),
+              flush=True)
+        if args.model and osp.isfile(args.model):
+            print("load model:", args.model, flush=True)
+            sdf_sub = None
+            if args.sdf_model and osp.isfile(args.sdf_model):
+                # a port .pt, a reference .pth (full or a bare SDF
+                # state_dict) or a JAX pickle (JAX's cli/train.py:119-132)
+                sdf_sub = load_sdf_state(args.sdf_model)
+            start_epoch = load_checkpoint(args.model, trainer,
+                                          sdf_state=sdf_sub)
+        else:
+            cache = osp.join(data_root, f"initial_sdf_idr_{multires}_"
+                                        f"{pose_type}_torch.pt")
+            info = trainer.initialize_sdf(
+                abs(conf.get_int("train.initial_iters")), cache_path=cache)
+            print("initial sdf:", info, flush=True)
+            if not info.get("cached"):
+                # the initial iso-surface, for inspection (train.py:129-132)
+                from ..utils.meshops import write_mesh
+                mc = trainer.discretize_sdf(0.0,
+                                            resolutions=res_sched["coarse"])
+                write_mesh(osp.join(data_root, f"initial_sdf_idr_{multires}_"
+                                               f"{pose_type}_torch.ply"),
+                           mc.verts, mc.faces)
+                print(f"initial mesh: {mc.verts.shape[0]} verts", flush=True)
+    if dp_setup_s is not None:
+        trainer.set_dp()
+        trainer.timings["dp_setup"] = dp_setup_s
+        print(f"data parallel: rank {D.rank()} of {D.world()} on {device}, "
+              f"process group set up in {dp_setup_s:.3f} s", flush=True)
 
     if trainer.stage_cfg is None:
         trainer.set_stage("coarse")
@@ -174,13 +263,17 @@ def main(argv=None, resolutions=None, skinner_res=None, tune=None):
 
     for epoch in range(start_epoch, nepoch + 1):
         if medium_at >= 0 and epoch == medium_at:
-            save_checkpoint(osp.join(save_root, "coarse.pt"), trainer, epoch)
+            if D.is_main():
+                save_checkpoint(osp.join(save_root, "coarse.pt"), trainer,
+                                epoch)
             trainer.set_stage("medium")
             print("enable medium hierarchical", flush=True)
             if tune is not None:
                 tune(trainer)
         if fine_at >= 0 and epoch == fine_at:
-            save_checkpoint(osp.join(save_root, "medium.pt"), trainer, epoch)
+            if D.is_main():
+                save_checkpoint(osp.join(save_root, "medium.pt"), trainer,
+                                epoch)
             trainer.set_stage("fine")
             in_fine = True
             print("enable fine hierarchical", flush=True)
@@ -199,10 +292,13 @@ def main(argv=None, resolutions=None, skinner_res=None, tune=None):
             report(trainer, epoch, di, info, time.time() - t0)
             if (not drew and trainer.forward_time
                     % trainer.stage_cfg.remesh_intersect == 1):
-                trainer.save_debug(debug_root, np.asarray(fids), batch)
+                if D.is_main():
+                    trainer.save_debug(debug_root, np.asarray(fids), batch)
                 drew = True
         print(f"epoch {epoch} took {time.time() - t_epoch:.1f}s", flush=True)
-        save_checkpoint(osp.join(save_root, "latest.pt"), trainer, epoch + 1)
+        if D.is_main():
+            save_checkpoint(osp.join(save_root, "latest.pt"), trainer,
+                            epoch + 1)
     print("training done.", flush=True)
     return trainer
 

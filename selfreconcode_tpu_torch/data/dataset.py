@@ -1,10 +1,13 @@
 """Scene dataset and the per-frame parameter bank (torch port of
 ``selfreconcode_tpu/data/dataset.py``).
 
-The dataset does host-side IO only (numpy + cv2, PNG or JPEG frames): images
-load BGR as uint8, masks as any-channel > 0, normals RGB.  ``param_bank``
-returns the per-frame optimizables (poses, trans, camera, both latent banks)
-as numpy arrays under the reference checkpoint's names.
+The dataset does host-side IO only (PNG or JPEG frames): images load BGR as
+uint8, masks as any-channel > 0, normals RGB.  Frames decode with the native
+loader (``native_loader.py``: a C++ thread pool over libpng and libjpeg,
+the frames of a batch in parallel) where its toolchain is present, else
+with cv2 (``decoder`` says which), and are cached after the first read.
+``param_bank`` returns the per-frame optimizables (poses, trans, camera,
+both latent banks) as numpy arrays under the reference checkpoint's names.
 """
 from __future__ import annotations
 
@@ -30,10 +33,25 @@ def frame_images(data_root: str) -> List[str]:
 
 class SceneDataset:
     def __init__(self, data_root: str,
-                 conds_lens: Optional[Dict[str, int]] = None, seed: int = 0):
+                 conds_lens: Optional[Dict[str, int]] = None, seed: int = 0,
+                 use_native: bool = True):
         self.root = data_root
         self._read_meta()
         self._cache: Dict[int, dict] = {}
+        self._native = None
+        self.decoder = "cv2"
+        if use_native:
+            from .native_loader import NativeLoader, toolchain
+            missing = toolchain()
+            if missing:
+                print(f"native frame loader: {missing}; frames decode with "
+                      f"cv2", flush=True)
+            else:
+                self._native = NativeLoader.create(
+                    self.img_ns, self.mask_ns,
+                    self.normal_ns if any(self.normal_ns) else None,
+                    self.H, self.W)
+                self.decoder = "native"
         rng = np.random.default_rng(seed)
         self.conds: Dict[str, np.ndarray] = {}
         ncoef = max(self.frame_num // 5, 1)
@@ -79,6 +97,11 @@ class SceneDataset:
             "world2cam_coord_trans": cam["T"].astype(np.float32).reshape(3),
         }
         self.has_normals = osp.isdir(osp.join(self.root, "normals"))
+        # each frame's normal map, "" where it has none
+        self.normal_ns = []
+        for img_n in self.img_ns:
+            p = img_n.replace("/imgs/", "/normals/")[:-3] + "png"
+            self.normal_ns.append(p if osp.isfile(p) else "")
 
     @staticmethod
     def _imread(path):
@@ -90,20 +113,42 @@ class SceneDataset:
     def frame_data(self, fid: int) -> dict:
         """uint8 image (H,W,3) BGR, uint8 mask (H,W) in {0,1}, optional uint8
         normal (H,W,3) RGB; cached after the first read."""
-        if fid in self._cache:
-            return self._cache[fid]
+        return self._frames([fid])[0]
+
+    def _decode_cv2(self, fid: int) -> dict:
         out = {"img": self._imread(self.img_ns[fid]),
                "mask": (self._imread(self.mask_ns[fid]) > 0).any(-1).astype(
                    np.uint8)}
-        norm_f = self.img_ns[fid].replace("/imgs/", "/normals/")[:-3] + "png"
-        if osp.isfile(norm_f):
-            out["normal"] = np.ascontiguousarray(self._imread(norm_f)[:, :, ::-1])
-        self._cache[fid] = out
+        if self.normal_ns[fid]:
+            out["normal"] = np.ascontiguousarray(
+                self._imread(self.normal_ns[fid])[:, :, ::-1])
         return out
+
+    def _decode_native(self, fids) -> Dict[int, dict]:
+        """One native batch for the frames with a normal map and one for
+        those without (a batch returns normals only when all have one)."""
+        out = {}
+        for group in ([f for f in fids if self.normal_ns[f]],
+                      [f for f in fids if not self.normal_ns[f]]):
+            if group:
+                raw = self._native.batch(group)
+                out.update({f: {k: v[i] for k, v in raw.items()}
+                            for i, f in enumerate(group)})
+        return out
+
+    def _frames(self, fids) -> List[dict]:
+        fids = [int(f) for f in fids]
+        new = [f for f in dict.fromkeys(fids) if f not in self._cache]
+        if self._native is not None:
+            decoded = self._decode_native(new)
+        else:
+            decoded = {f: self._decode_cv2(f) for f in new}
+        self._cache.update(decoded)
+        return [self._cache[f] for f in fids]
 
     def batch_raw(self, fids) -> dict:
         """uint8 batch: img (B,H,W,3) BGR, mask (B,H,W), optional normal."""
-        frames = [self.frame_data(int(f)) for f in fids]
+        frames = self._frames(fids)
         out = {"img": np.stack([f["img"] for f in frames]),
                "mask": np.stack([f["mask"] for f in frames])}
         if all("normal" in f for f in frames):

@@ -38,26 +38,36 @@ def dct_prior_loss(dctnull, posed_joints_windows):
     return torch.einsum("kn,bnj->bkj", dctnull, traj).abs().mean()
 
 
-def _per_frame_mean(per_ray, batch_inds, valid, num_frames: int):
+def frame_counts(batch_inds, valid, num_frames: int):
+    """Per frame, the number of valid rays (float)."""
+    w = valid.to(torch.float32)
+    return w.new_zeros(num_frames).index_add(0, batch_inds, w)
+
+
+def _per_frame_mean(per_ray, batch_inds, valid, cnts):
+    """Mean over frames (those with a valid ray) of each frame's mean.
+    `cnts`: the per-frame counts of the valid rays (``frame_counts``) of
+    every rank, when these rays are one rank's share; the result is then
+    this share's part of the mean."""
     w = valid.to(per_ray.dtype)
-    sums = per_ray.new_zeros(num_frames).index_add(0, batch_inds, per_ray * w)
-    cnts = per_ray.new_zeros(num_frames).index_add(0, batch_inds, w)
+    sums = per_ray.new_zeros(cnts.shape[0]).index_add(0, batch_inds,
+                                                      per_ray * w)
     per_frame = sums / cnts.clamp_min(1e-8)
     return masked_mean(per_frame, cnts > 0)
 
 
-def color_l1_loss(pred, gt, batch_inds, valid, num_frames: int):
+def color_l1_loss(pred, gt, batch_inds, valid, cnts):
     """Per-ray L1 summed over channels, mean per frame, then mean."""
     return _per_frame_mean((gt - pred).abs().sum(-1), batch_inds, valid,
-                           num_frames)
+                           cnts)
 
 
 def normal_loss(gt_normals_pulled, sdf_normals, weights, batch_inds, valid,
-                num_frames: int):
+                cnts):
     """||J^T n_gt - n_sdf|| weighted, mean per frame, then mean."""
     per_ray = torch.linalg.norm(gt_normals_pulled - sdf_normals,
                                 dim=-1) * weights
-    return _per_frame_mean(per_ray, batch_inds, valid, num_frames)
+    return _per_frame_mean(per_ray, batch_inds, valid, cnts)
 
 
 def def_consistency_loss(def_verts, lbs_only_verts, vert_valid, c: float):

@@ -43,6 +43,7 @@ from ..models.skinner import (Skinner, build_skinner, frame_rows,
                               posed_skeleton, skinner_apply_shared)
 from ..models.translator import TranslatorNet
 from ..ops.marching_cubes import marching_cubes
+from .. import parallel as D
 from ..ops.rasterize import rasterize_mesh, splat_mask
 from ..ops.sparse_sdf import grid_world_coords, sparse_sdf_grid
 from ..render.camera import (Camera, ang_threshold, cam_pos, make_camera,
@@ -270,13 +271,32 @@ def fragment_seeds(cam: Camera, verts: torch.Tensor, faces: torch.Tensor,
 # The training step
 # ---------------------------------------------------------------------------
 
+# every key a step's info may hold (the step sums their values over the
+# ranks in this order)
+STEP_INFO_KEYS = (
+    "ray_converged", "grad_loss", "offset_loss", "def_loss", "dct_loss",
+    "inv_ok", "color_loss", "normal_loss", "pc_loss_sdf", "pc_mask_loss",
+    "splat_max_cell", "splat_active", "pc_lap_loss", "pc_edge_loss",
+    "pc_norm_loss", "pc_defconst_loss", "pred_mask_sum", "loss")
+
+
 def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
                     dctnull: np.ndarray, ang_thresh_deg: float, optimizer):
     """Returns step(bank, tmp, gtCs, gtMs, gtNs, fids, windows, ratios, lr,
     draws) -> (new template, info dict of floats).
 
     Updates the nets and the bank in place (Adam); after the call each leaf's
-    .grad holds the masked inner + outer gradient the update used."""
+    .grad holds the masked inner + outer gradient the update used.
+
+    Under a data-parallel group (``parallel.init_dp``; every rank passes the
+    same arguments) rank 0 alone runs the geom and inner passes, the DCT
+    prior and the SDF anchor, and broadcasts the rays and the new template;
+    each rank runs the outer pass's per-ray work on its contiguous share of
+    the rays and its point terms on its share of the points (each mean is
+    its share's part of the global mean; the per-frame counts are summed
+    over ranks first).  One all-reduce then sums the gradients and the info
+    values, and every rank takes the same Adam step.  Without a group every
+    collective is a no-op and each share is the whole."""
     surf_cfg = SurfaceConfig(n_iters=cfg.surf_iters,
                              athreshold_deg=ang_thresh_deg,
                              newton=cfg.surf_newton)
@@ -315,9 +335,7 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
             sel = covers & (gtMs > 0.0)
             idx, sel_ok = subsample_mask_topk(sel.reshape(-1), P,
                                               scores=draws.sel_scores)
-            rem = idx % (H * W)
-            return (inits.reshape(-1, 3)[idx], sel_ok,
-                    idx // (H * W), rem // W, rem % W, mgtMs)
+            return inits.reshape(-1, 3)[idx], sel_ok, idx, mgtMs
 
     def inner_pass(bank, tmp, fids, mgtMs, r_def):
         tv = tmp.verts.detach().requires_grad_(True)
@@ -365,31 +383,65 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
         info["pred_mask_sum"] = masks.detach().sum()
         return new_tmp, loss.detach(), info
 
+    def share_mean(v, n_all: int):
+        """v.mean() over this rank's rows, as its part of the mean over
+        all n_all rows (the ranks' parts sum to it; at a world of one the
+        factor is 1.0 exactly)."""
+        return v.mean() * (v.shape[0] / n_all)
+
+    def gt_normals(cam, gtNs, ray_binds, ray_rows, ray_cols):
+        """The rays' GT normals in world space, unit length, and where they
+        are valid (a map's zero normal is not)."""
+        flip = torch.tensor([[-1.0, 0, 0], [0, 1.0, 0], [0, 0, -1.0]],
+                            device=gtNs.device)
+        gtn = gtNs[ray_binds, ray_rows, ray_cols]
+        gtn_w = torch.einsum("ij,nj->ni", cam.R @ flip, gtn)
+        norms = torch.linalg.norm(gtn_w, dim=-1, keepdim=True)
+        return gtn_w / norms.clamp_min(1e-4), norms[..., 0] > 1e-4
+
     def outer_pass(bank, new_tmp, gtCs, gtNs, fids, init_pts, sel_ok,
                    ray_rows, ray_cols, ray_binds, windows, ratios, draws):
+        """The rays (and the point terms' points) are this rank's
+        share."""
         r_sdf, r_def, r_ren = ratios
         cam = camera_from_bank(bank, H, W, cfg)
         poses, trans, dcond, _ = frame_params(bank, fids)
         new_verts = new_tmp.verts.detach()
         nv = new_verts.shape[0]
+        n_rays = ray_rows.shape[0]
         info = {}
         pix = torch.stack([ray_cols.float(), ray_rows.float(),
-                           torch.ones(P, device=new_verts.device)], dim=-1)
+                           torch.ones(n_rays, device=new_verts.device)],
+                          dim=-1)
         rays = view_rays(cam, pix)
         pts, done = surface_points(surf_nets, surf_cfg, r_sdf, r_def, dcond,
                                    poses, trans, rays, cam_pos(cam),
                                    init_pts, ray_binds)
         done = done & sel_ok
         info["ray_converged"] = done.sum()
+        use_normals = cfg.has_normals and w.normal_weight > 0.0
+        if use_normals:
+            gtn_w, nok = gt_normals(cam, gtNs, ray_binds, ray_rows, ray_cols)
+        else:
+            nok = torch.zeros_like(done)
+        # the per-frame ray counts of every rank, before any loss
+        with torch.no_grad():
+            cnt_c = L.frame_counts(ray_binds, done, N)
+            cnt_n = L.frame_counts(ray_binds, nok & done, N)
+            D.allreduce_sum_([cnt_c, cnt_n])
 
         valid_v = torch.ones(nv, dtype=torch.bool, device=new_verts.device)
         tidx, _ = subsample_mask_topk(valid_v, n_eik_tmp(cfg, nv),
                                       scores=draws.eik_scores)
-        base = torch.cat([pts.detach(), new_verts[tidx]], dim=0)
+        base = torch.cat([D.all_gather_rows(pts.detach()), new_verts[tidx]],
+                         dim=0)
         nonmnfld = sample_points(base, 1.8, 0.01,
                                  noise=(draws.eik_normal, draws.eik_uniform))
+        n_eik = nonmnfld.shape[0]
+        nonmnfld = D.share(nonmnfld)
         g_eik = sdf_grad(sdf_net, nonmnfld, r_sdf)
-        grad_loss = ((torch.linalg.norm(g_eik, dim=-1) - 1.0) ** 2).mean()
+        grad_loss = share_mean((torch.linalg.norm(g_eik, dim=-1) - 1.0) ** 2,
+                               n_eik)
         info["grad_loss"] = grad_loss
         total = grad_loss * w.grad_weight
 
@@ -398,7 +450,7 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
             bn = torch.arange(N, device=pts.device).repeat_interleave(M)
             off = translator.offset(nonmnfld.repeat(N, 1),
                                     frame_rows(dcond, bn), r_def)
-            off_l = torch.linalg.norm(off, dim=-1).mean()
+            off_l = share_mean(torch.linalg.norm(off, dim=-1), N * n_eik)
             info["offset_loss"] = off_l
             total = total + off_l * w.offset_weight
 
@@ -406,17 +458,21 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
             jit_pts = sample_points(base, 1.8, 0.01, ratio=0,
                                     noise=(draws.def_normal,))
             dr_pts = torch.cat([base, jit_pts], dim=0)
+            n_dr = dr_pts.shape[0]
+            dr_pts = D.share(dr_pts)
             M = dr_pts.shape[0]
             bd = torch.arange(N, device=pts.device).repeat_interleave(M)
             conds = frame_rows(dcond, bd)
             jac, _ = point_jacobian(
                 lambda q: translator(q, conds, r_def)[0], dr_pts.repeat(N, 1))
             s2 = log_singular_values_sq_sum(jac)
-            def_loss = gm_robust(s2, w.def_regu_c, square=True).mean()
+            def_loss = share_mean(gm_robust(s2, w.def_regu_c, square=True),
+                                  N * n_dr)
             info["def_loss"] = def_loss
             total = total + def_loss * w.def_regu_weight
 
-        if (cfg.opt_pose or cfg.opt_trans) and w.dct_weight > 0.0:
+        main = D.is_main()
+        if main and (cfg.opt_pose or cfg.opt_trans) and w.dct_weight > 0.0:
             wposes = bank["poses"][windows]
             if not cfg.opt_pose:
                 wposes = wposes.detach()
@@ -440,11 +496,11 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
         if w.color_weight > 0.0:
             colors = render_net(pts, nx, crays, feat, r_ren)
             gt = gtCs[ray_binds, ray_rows, ray_cols]
-            color_loss = L.color_l1_loss(colors, gt, ray_binds, done, N)
+            color_loss = L.color_l1_loss(colors, gt, ray_binds, done, cnt_c)
             info["color_loss"] = color_loss
             total = total + w.color_weight * color_loss
 
-        if cfg.has_normals and w.normal_weight > 0.0:
+        if use_normals:
             with torch.no_grad():
                 ndef = torch.einsum("nji,nj->ni", jinv, nx)     # J^-T n
                 ndef = torch.where(inv_ok[:, None], ndef,
@@ -453,41 +509,75 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
                 if w.weighted_normal:
                     wgt = ((-rays * ndef).sum(-1)).clamp(0.0, 1.0) ** 2
                 else:
-                    wgt = torch.ones(P, device=pts.device)
-            flip = torch.tensor([[-1.0, 0, 0], [0, 1.0, 0], [0, 0, -1.0]],
-                                device=pts.device)
-            gtn = gtNs[ray_binds, ray_rows, ray_cols]
-            gtn_w = torch.einsum("ij,nj->ni", cam.R @ flip, gtn)
-            norms = torch.linalg.norm(gtn_w, dim=-1, keepdim=True)
-            nvalid = (norms[..., 0] > 1e-4) & done
-            gtn_w = gtn_w / norms.clamp_min(1e-4)
+                    wgt = torch.ones(n_rays, device=pts.device)
             gtn_c = torch.einsum("nji,nj->ni", jac_d, gtn_w)   # J^T n_gt
-            normal_loss = L.normal_loss(gtn_c, nx, wgt, ray_binds, nvalid, N)
+            normal_loss = L.normal_loss(gtn_c, nx, wgt, ray_binds,
+                                        nok & done, cnt_n)
             info["normal_loss"] = normal_loss
             total = total + w.normal_weight * normal_loss
 
-        if draws.anchor_scores is not None:
-            aidx, avalid = subsample_mask_topk(valid_v, cfg.anchor_sub,
-                                               scores=draws.anchor_scores)
-            averts = new_verts[aidx]
-        else:
-            averts, avalid = new_verts, valid_v
-        anchor = L.sdf_anchor_loss(sdf_net(averts, r_sdf)[0], avalid, 0.0)
-        info["pc_loss_sdf"] = anchor
-        total = total + anchor * w.pc_weight
+        if main:
+            if draws.anchor_scores is not None:
+                aidx, avalid = subsample_mask_topk(
+                    valid_v, cfg.anchor_sub, scores=draws.anchor_scores)
+                averts = new_verts[aidx]
+            else:
+                averts, avalid = new_verts, valid_v
+            anchor = L.sdf_anchor_loss(sdf_net(averts, r_sdf)[0], avalid, 0.0)
+            info["pc_loss_sdf"] = anchor
+            total = total + anchor * w.pc_weight
         total.backward()
         return total.detach(), {k: v.detach() for k, v in info.items()}
+
+    def ray_pixels(idx):
+        """(frame, row, column) of each selected pixel id."""
+        rem = idx % (H * W)
+        return idx // (H * W), rem // W, rem % W
 
     def step(bank, tmp: Template, gtCs, gtMs, gtNs, fids, windows, ratios,
              lr: float, draws: StepDraws):
         optimizer.zero_grad(set_to_none=False)
         r_def = ratios[1]
-        init_pts, sel_ok, ray_binds, ray_rows, ray_cols, mgtMs = geom_pass(
-            bank, tmp, gtMs, fids, r_def, draws)
-        new_tmp, pc_loss, pc_info = inner_pass(bank, tmp, fids, mgtMs, r_def)
-        outer, info = outer_pass(bank, new_tmp, gtCs, gtNs, fids, init_pts,
-                                 sel_ok, ray_rows, ray_cols, ray_binds,
-                                 windows, ratios, draws)
+        dev = tmp.verts.device
+        if D.is_main():
+            init_pts, sel_ok, idx, mgtMs = geom_pass(bank, tmp, gtMs, fids,
+                                                     r_def, draws)
+            new_tmp, pc_loss, info = inner_pass(bank, tmp, fids, mgtMs, r_def)
+        else:
+            init_pts = torch.empty(P, 3, device=dev)
+            sel_ok = torch.empty(P, dtype=torch.bool, device=dev)
+            idx = torch.empty(P, dtype=torch.long, device=dev)
+            new_tmp = dataclasses.replace(
+                tmp, verts=torch.empty_like(tmp.verts),
+                momentum=torch.empty_like(tmp.momentum))
+            pc_loss, info = 0.0, {}
+        D.broadcast_([init_pts, sel_ok, idx, new_tmp.verts,
+                      new_tmp.momentum])
+        ray_binds, ray_rows, ray_cols = ray_pixels(idx)
+        outer, outer_info = outer_pass(
+            bank, new_tmp, gtCs, gtNs, fids, D.share(init_pts),
+            D.share(sel_ok), D.share(ray_rows), D.share(ray_cols),
+            D.share(ray_binds), windows, ratios, draws)
+        info = {**outer_info, **info, "loss": outer + pc_loss}
+        unknown = set(info) - set(STEP_INFO_KEYS)
+        if unknown:
+            raise KeyError(f"info keys outside STEP_INFO_KEYS: {unknown}")
+        # one all-reduce: the gradients, which leaves have one on some rank,
+        # and the info values with which keys some rank set
+        leaves = [p for g in optimizer.param_groups for p in g["params"]]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in leaves]
+        has_grad = torch.tensor([float(p.grad is not None) for p in leaves],
+                                device=dev)
+        zero = torch.zeros((), device=dev)
+        vals = torch.stack([info[k].float() if k in info else zero
+                            for k in STEP_INFO_KEYS])
+        present = torch.tensor([float(k in info) for k in STEP_INFO_KEYS],
+                               device=dev)
+        D.allreduce_sum_(grads + [has_grad, vals, present])
+        for p, g, h in zip(leaves, grads, has_grad.tolist()):
+            if h > 0 and p.grad is None:
+                p.grad = g
         with torch.no_grad():
             for k, trainable in grad_mask_tree(bank, cfg).items():
                 if not trainable and bank[k].grad is not None:
@@ -495,11 +585,8 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
         for group in optimizer.param_groups:
             group["lr"] = float(lr)
         optimizer.step()
-        info.update(pc_info)
-        info["loss"] = outer + pc_loss
-        keys = list(info)
-        vals = torch.stack([info[k].float() for k in keys]).tolist()
-        out = dict(zip(keys, vals))
+        out = {k: v for k, v, n in zip(STEP_INFO_KEYS, vals.tolist(),
+                                       present.tolist()) if n > 0}
         out["splat_overflow"] = 0.0   # no candidate capacity: nothing drops
         out["frag_overflow"] = 0.0
         return new_tmp, out
@@ -646,15 +733,20 @@ class Trainer:
             return torch.cat([sdf(c, ratio)[0] for c in torch.split(p, chunk)])
         return q
 
+    def _grow_left(self) -> np.ndarray:
+        """The bbox growth each side has left (x-, y-, z-, x+, y+, z+): half
+        the initial extent over the run's lifetime."""
+        if self._bbox_grow_left is None:
+            ext0 = (self.b_max - self.b_min).astype(np.float64)
+            self._bbox_grow_left = np.concatenate([0.5 * ext0, 0.5 * ext0])
+        return self._bbox_grow_left
+
     def discretize_sdf(self, ratio_sdf: float, resolutions=None):
         """Octree sweep + marching cubes with the directional bbox growth;
         returns the MCResult (exact-size verts/faces)."""
         res = resolutions or self.stage_cfg.resolutions
         res = tuple(tuple(int(v) for v in r) for r in res)
-        if self._bbox_grow_left is None:
-            ext0 = (self.b_max - self.b_min).astype(np.float64)
-            self._bbox_grow_left = np.concatenate([0.5 * ext0, 0.5 * ext0])
-        grow_left = self._bbox_grow_left
+        grow_left = self._grow_left()
         for tries in range(4):
             with torch.no_grad():
                 vol = sparse_sdf_grid(self._query_fn(ratio_sdf), res,
@@ -703,12 +795,76 @@ class Trainer:
 
     def remesh(self, ratio_sdf: float):
         t0 = time.perf_counter()
-        mc = self.discretize_sdf(ratio_sdf)
-        self.tmp = make_template(mc.verts, mc.faces)
+        verts, faces = self._remesh_on_main(ratio_sdf)
+        self.tmp = make_template(verts, faces)
         self._sync()
         self.timings["remesh"] = time.perf_counter() - t0
         self.remesh_time = 1.0 + np.floor(self.remesh_time)
-        return mc.verts.shape[0], mc.faces.shape[0]
+        return verts.shape[0], faces.shape[0]
+
+    def _host_state(self) -> torch.Tensor:
+        """What a remesh may change on the host: the sweep bbox, its growth
+        budget, the raster footprint and the boundary warning."""
+        fp = self.stage_cfg.raster_footprint if self.stage_cfg else 0
+        return torch.tensor(np.concatenate([
+            self.b_min, self.b_max, self._grow_left(),
+            [fp, float(self._warned_boundary)]]), dtype=torch.float64,
+            device=self.device)
+
+    def _remesh_on_main(self, ratio_sdf: float):
+        """Rank 0 remeshes; every rank receives its verts, faces and host
+        state (without a group, the broadcasts are no-ops)."""
+        dev = self.device
+        if D.is_main():
+            mc = self.discretize_sdf(ratio_sdf)
+            verts, faces = mc.verts, mc.faces
+            sizes = torch.tensor([verts.shape[0], faces.shape[0]],
+                                 device=dev)
+        else:
+            sizes = torch.zeros(2, dtype=torch.long, device=dev)
+        D.broadcast_([sizes])
+        if not D.is_main():
+            nv, nf = sizes.tolist()
+            verts = torch.empty(nv, 3, device=dev)
+            faces = torch.empty(nf, 3, dtype=torch.long, device=dev)
+        host = self._host_state()
+        D.broadcast_([verts, faces, host])
+        h = host.cpu().numpy()
+        self.b_min = h[0:3].astype(self.b_min.dtype)
+        self.b_max = h[3:6].astype(self.b_max.dtype)
+        self._bbox_grow_left = h[6:12].copy()
+        self._warned_boundary = bool(h[13])
+        if self.stage_cfg and int(h[12]) != self.stage_cfg.raster_footprint:
+            self.override_stage(raster_footprint=int(h[12]))
+        return verts, faces
+
+    def set_dp(self):
+        """Train as one rank of the data-parallel group that
+        ``parallel.init_dp`` joined (the counterpart of JAX's
+        ``set_mesh``): rank 0's nets, bank, template, Adam state and
+        generator state overwrite every rank's; each step then shards its
+        rays over the ranks and rank 0 alone remeshes.  Every rank must call
+        it after the same set-up (the same checkpoint, stage and template
+        shapes)."""
+        state = list(self.nets.state_dict().values()) + list(
+            self.bank.values())
+        if self.tmp is not None:
+            state += [self.tmp.verts, self.tmp.faces, self.tmp.momentum]
+        for st in self.optimizer.state.values():
+            state += [v for v in st.values() if torch.is_tensor(v)]
+        gen = self.generator.get_state()
+        state.append(gen)
+        layout = torch.tensor([len(state), sum(t.numel() for t in state)],
+                              device=self.device)
+        mine = layout.clone()
+        D.broadcast_([layout])
+        if not torch.equal(layout, mine):
+            raise RuntimeError(f"rank {D.rank()} holds (tensors, entries) "
+                               f"{mine.tolist()}, rank 0 "
+                               f"{layout.tolist()}: the ranks were not set "
+                               f"up alike")
+        D.broadcast_(state)
+        self.generator.set_state(gen)
 
     def _stage_footprint(self, res) -> int:
         """Raster footprint from the marching-cubes voxel: a triangle never

@@ -5,6 +5,9 @@ Each source is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/<content-hash>/<name>.so`` at first use (the hash covers the
 source and the flags, so an edit rebuilds) and loaded with ``ctypes``.
 Builds of different libraries may run at once (each from its own thread).
+A subclass changes the compiler (``compile_command``) and the build
+directory (``build_root``): the host frame loader is one
+(``data/native_loader.py``).
 """
 from __future__ import annotations
 
@@ -46,11 +49,14 @@ class CudaLibrary:
     """One ``csrc/<source>`` compiled to ``<name>.so``; ``bind(lib)`` sets the
     ctypes signatures once it is loaded."""
 
+    build_root = _BUILD_ROOT
+    base_flags = _BASE_FLAGS
+
     def __init__(self, source: str, name: str, bind: Callable,
                  extra_flags: Sequence[str] = ()):
         self.source = _CSRC / source
         self.name = name
-        self.flags = _BASE_FLAGS + tuple(extra_flags)
+        self.flags = self.base_flags + tuple(extra_flags)
         self._bind = bind
         self._lib = None
         self._lock = threading.Lock()
@@ -58,7 +64,11 @@ class CudaLibrary:
     def library_path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes()
                                 + " ".join(self.flags).encode()).hexdigest()
-        return _BUILD_ROOT / digest[:16] / f"{self.name}.so"
+        return self.build_root / digest[:16] / f"{self.name}.so"
+
+    def compile_command(self, out: str, verbose: bool = False) -> list:
+        return [_nvcc(), *self.flags, *(("-Xptxas", "-v") if verbose else ()),
+                "-o", out, str(self.source)]
 
     def build(self, verbose: bool = False) -> Path:
         """Compile unless the content-hashed library exists; returns its
@@ -70,13 +80,13 @@ class CudaLibrary:
         out.parent.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
         os.close(fd)
-        cmd = [_nvcc(), *self.flags, *(("-Xptxas", "-v") if verbose else ()),
-               "-o", tmp, str(self.source)]
+        cmd = self.compile_command(tmp, verbose)
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed on {self.source.name} "
-                               f"({proc.returncode}):\n{proc.stderr}")
+            raise RuntimeError(f"{Path(cmd[0]).name} failed on "
+                               f"{self.source.name} ({proc.returncode}):\n"
+                               f"{proc.stderr}")
         if verbose and proc.stderr:
             print(proc.stderr, flush=True)
         os.replace(tmp, out)

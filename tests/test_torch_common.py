@@ -36,6 +36,7 @@ H = W = 32
 SDF_KW = dict(hidden=(64,) * 4, skip_in=(2,), multires=2, feature_size=16)
 TR_KW = dict(cond_size=8, multires=2, hidden=(64, 64))
 RN_KW = dict(feature_size=16, hidden=(64, 64), multires_v=2)
+NET_KW = {"sdf": SDF_KW, "trans": TR_KW, "render": RN_KW}
 
 
 def _round(x, m):

@@ -51,11 +51,14 @@ from selfreconcode_tpu.ops import sparse_sdf as JSS
 from selfreconcode_tpu.utils import meshops as JM
 from selfreconcode_tpu.utils.math import dct_null_space
 from selfreconcode_tpu_torch.engine import trainer as TTR
-from selfreconcode_tpu_torch.interop import bank_from_jax, params_to_jax
+from selfreconcode_tpu_torch.interop import (bank_from_jax, params_from_jax,
+                                             params_to_jax)
 from selfreconcode_tpu_torch.models.deformer import deformer_apply
 from selfreconcode_tpu_torch.render.camera import make_camera
-from test_torch_common import (H, W, _round, jax_scene, port_nets,
+from test_torch_common import (H, NET_KW, W, _round, jax_scene, port_nets,
                                port_skinner, port_template)
+
+import torch_dp_workers as DPW
 
 P = 32
 EIK = 512
@@ -137,9 +140,11 @@ def with_jax_topology(tmp, nf):
                            ("edges", "edge_valid", "edge_faces", "ef_valid")})
 
 
-def run_step(root, variant=None):
-    """One step of each side on the same inputs; variant names the stage
-    fields of VARIANTS that both sides change."""
+def jax_step(root, variant=None, mesh=None):
+    """One JAX step; variant names the stage fields of VARIANTS that both
+    sides change.  mesh: JAX's data-parallel layout (``Trainer.set_mesh``):
+    the image tensors sharded over their H axis, the state replicated.
+    Returns its results and, under "port_in", the port's inputs."""
     s = jax_setup(root, **SCENES.get(variant, {}))
     ds, cfg, nv = s["ds"], s["cfg"], s["nv"]
     kw = dict(VARIANTS.get(variant, {}))
@@ -158,46 +163,54 @@ def run_step(root, variant=None):
     params = s["params"]
     key = jax.random.PRNGKey(42)
     ratios = jnp.asarray([1.0, 0.5, 1.0], jnp.float32)
-    args = (jnp.asarray(batch["img"]), jnp.asarray(batch["mask"]),
-            jnp.asarray(gtNs), jnp.asarray(fids, jnp.int32),
-            jnp.asarray(windows, jnp.int32), ratios, jnp.asarray(LR), key)
+    imgs = [jnp.asarray(batch["img"]), jnp.asarray(batch["mask"]),
+            jnp.asarray(gtNs)]
     jdef = JD.Deformer(translator=s["nets"][1], skinner=s["jsk"])
     rec = recording_optimizer()
     jstep = JTR.make_train_step(*s["nets"], jdef, cfg, s["dctnull"], s["ang"],
                                 rec)
     state = JTR.TrainState(params, bank, rec.init((params, bank)), s["tmp"])
-    new_state, jinfo = jstep(state, *args)
+    if mesh is not None:
+        from jax.sharding import NamedSharding, PartitionSpec
+        rows = NamedSharding(mesh, PartitionSpec(None, "dp"))
+        imgs = [jax.device_put(x, rows) for x in imgs]
+        state = jax.device_put(state, NamedSharding(mesh, PartitionSpec()))
+    new_state, jinfo = jstep(state, *imgs, jnp.asarray(fids, jnp.int32),
+                             jnp.asarray(windows, jnp.int32), ratios,
+                             jnp.asarray(LR), key)
     jg_params, jg_bank = new_state.opt_state
     adam = optax.adam(1.0)
     upd, _ = adam.update((jg_params, jg_bank), adam.init((params, bank)),
                          (params, bank))
     j_new_params = jax.tree_util.tree_map(lambda p, u: p + LR * u, params,
                                           upd[0])
-    # the port
     params_np = jax.tree_util.tree_map(np.asarray, params)
-    nets = port_nets(params_np)
-    tbank = {k: torch.tensor(v, requires_grad=True)
-             for k, v in bank_from_jax(jax.tree_util.tree_map(
-                 np.asarray, bank)).items()}
-    opt = torch.optim.Adam(list(nets.parameters()) + list(tbank.values()),
-                           lr=LR, betas=(0.9, 0.999), eps=1e-8)
     tcfg = TTR.StageStatic(
         name="coarse", N=1, H=cfg.H, W=cfg.W, sample_pix=P, radius=RADIUS,
         remesh_intersect=30, resolutions=cfg.resolutions,
-        weights=cfg.weights, eik_tmp=cfg.eik_tmp, anchor_sub=0,
-        window=cfg.window, has_normals=True, point_inits=cfg.point_inits,
+        weights=TTR.LossWeights(**dataclasses.asdict(cfg.weights)),
+        eik_tmp=cfg.eik_tmp, anchor_sub=0, window=cfg.window,
+        has_normals=True, point_inits=cfg.point_inits,
         surf_newton=cfg.surf_newton, raster_footprint=cfg.raster_footprint)
-    tstep = TTR.make_train_step(nets, port_skinner(s["jsk"]), tcfg,
-                                s["dctnull"], s["ang"], opt)
-    tmp = port_template(s)
     img, mask, nrm = TTR.image_batch({**batch, "normal": gtNs}, "cpu")
-    new_tmp, info = tstep(tbank, tmp, img, mask, nrm, torch.tensor(fids),
-                          torch.tensor(windows), (1.0, 0.5, 1.0), LR,
-                          jax_draws(key, cfg, nv, cfg.vcap))
-    return dict(jinfo={k: float(v) for k, v in jinfo.items()}, info=info,
+    port_in = dict(
+        state_dict=params_from_jax(params_np), kwargs=NET_KW,
+        bank=bank_from_jax(jax.tree_util.tree_map(np.asarray, bank)),
+        cfg=tcfg, skinner=port_skinner(s["jsk"]),
+        dctnull=np.asarray(s["dctnull"]), ang=float(s["ang"]), tmp=port_template(s), img=img, mask=mask, nrm=nrm,
+        fids=torch.tensor(fids), windows=torch.tensor(windows), lr=LR,
+        draws=jax_draws(key, cfg, nv, cfg.vcap))
+    return dict(jinfo={k: float(v) for k, v in jinfo.items()},
                 jg=(jg_params, jg_bank), j_new=j_new_params,
-                j_tmp=new_state.tmp, nets=nets, bank=tbank, tmp=new_tmp,
-                params_np=params_np, nv=nv, s=s, fids=fids, tmp0=tmp)
+                j_tmp=new_state.tmp, params_np=params_np, nv=nv, s=s,
+                fids=fids, port_in=port_in)
+
+
+def run_step(root, variant=None):
+    """One step of each side on the same inputs."""
+    r = jax_step(root, variant)
+    r.update(DPW.port_step(r["port_in"]), tmp0=r["port_in"]["tmp"])
+    return r
 
 
 @pytest.fixture(scope="module")
@@ -212,7 +225,11 @@ def variant_results(request, tmp_path_factory):
 
 
 def test_step_losses_match(step_results):
-    ji, ti = step_results["jinfo"], step_results["info"]
+    assert_losses_match(step_results)
+
+
+def assert_losses_match(r):
+    ji, ti = r["jinfo"], r["info"]
     keys = ("loss", "grad_loss", "def_loss", "dct_loss", "color_loss",
             "normal_loss", "pc_loss_sdf", "pc_mask_loss", "pc_defconst_loss",
             "pred_mask_sum", "inv_ok")
@@ -295,12 +312,16 @@ def test_fragment_seeds_match_jax(variant_results):
 
 
 def test_template_sgd_matches(step_results):
-    nv = step_results["nv"]
-    jt = step_results["j_tmp"]
-    np.testing.assert_allclose(step_results["tmp"].verts.numpy(),
+    assert_template_matches(step_results)
+
+
+def assert_template_matches(r):
+    nv = r["nv"]
+    jt = r["j_tmp"]
+    np.testing.assert_allclose(r["tmp"].verts.numpy(),
                                np.asarray(jt.verts)[:nv], atol=1e-6)
     m = np.asarray(jt.momentum)[:nv]
-    np.testing.assert_allclose(step_results["tmp"].momentum.numpy(), m,
+    np.testing.assert_allclose(r["tmp"].momentum.numpy(), m,
                                rtol=0, atol=1e-3 * np.abs(m).max())
 
 
@@ -347,7 +368,10 @@ def assert_gradients_match(r):
 
 
 def test_params_after_adam_match(step_results):
-    r = step_results
+    assert_params_match(step_results)
+
+
+def assert_params_match(r):
     jg_params, _ = r["jg"]
     mine_new = params_to_jax(r["nets"].state_dict())
     for tower in ("sdf", "trans", "render"):
@@ -364,7 +388,9 @@ def test_params_after_adam_match(step_results):
 def test_train_cli_on_cpu(tmp_path):
     """Port-only: cli.train.main end to end on a 32x32 toy scene.  30 IGR
     iterations at full width (fewer leave the field entirely negative, so
-    the remesh finds no surface); tiny octree and skinner."""
+    the remesh finds no surface); tiny octree and skinner.  The parser
+    rejects --gpu-ids and a malformed --mesh, and reads --mesh dp=N
+    (test_torch_parallel.py trains with it)."""
     from selfreconcode_tpu_torch.cli import train as cli
     from selfreconcode_tpu_torch.data.dataset import \
         make_synthetic_scene as port_scene
@@ -391,9 +417,11 @@ def test_train_cli_on_cpu(tmp_path):
     assert (scene / "rec" / "latest.pt").is_file()
     assert (scene / "initial_sdf_idr_6_1_torch.pt").is_file()
     assert (scene / "initial_skinner_1_torch.pt").is_file()
-    with pytest.raises(SystemExit):
-        cli.parse_args(["--conf", "c", "--data", "d", "--save-folder", "s",
-                        "--mesh", "dp=2"])
+    base = ["--conf", "c", "--data", "d", "--save-folder", "s"]
+    for bad in (["--gpu-ids", "0"], ["--mesh", "dp=x"]):
+        with pytest.raises(SystemExit):
+            cli.parse_args(base + bad)
+    assert cli.parse_args(base + ["--mesh", "dp=2"]).dp == 2
 
 
 def _cli_conf(tmp_path, fine_at=None):
