@@ -88,12 +88,33 @@ Phases:
      4e-6) and the aggregation of all 4 frames from the card's fragments
      and weights (texture and weight within 1e-6).
      Every path (the subject renders, coarse, fine, fragment steps, the
-     resumes, the schedule, each A/B variant, inference, the texture CLIs)
-     runs with all launch counters zeroed right before it and read right
-     after, and must launch each
+     resumes, the schedule, each A/B variant, inference, the texture CLIs,
+     the acceptance flow and each timing tool) runs with all launch
+     counters zeroed right before it and read right after, and must launch each
      kernel it uses (splat forward and backward in training, the mesh
      kernel in the renders, the debug dump, fragment seeding, inference and
      the bake); the kernels line sums them;
+  3h. acceptance at 1080x1080 (run after 4b): ``tools.acceptance_run`` on a
+     12-frame subject with phase 3's IGR and skinner caches and 3e's stage
+     epochs, --epochs 2 (4 coarse, 6 medium and 12 fine steps), inference of
+     4 frames; exactly 37 + 36 splat and 12 + 1 + 8 mesh launches (render,
+     debug dump, inference); prints its JSON line (per-stage median s/step
+     and epoch seconds, the projection onto config.conf's 201 epochs at 450
+     frames from this run's step counts, maskE, and Chamfer and normal
+     consistency of rec/tmp.ply against the ground truth posed into the
+     canonical pose); Chamfer finite, normal consistency and maskE in
+     [0, 1]; then ``tools.host_mask_eval`` on the 4 frames (no kernel
+     launch): the exact silhouettes, the training masks' hole and excess
+     fractions against them (an independent check of the mesh kernel's
+     masks), maskE against both;
+  3i. timing: ``tools.profile_step`` at 1080x1080 on the synthetic trainer,
+     coarse N=3 and fine N=1, 3 calls (wall, CUDA-event span and
+     profiler-busy ms per pass, their sum, the steady train_step);
+     ``tools.bench_outer`` and ``tools.bench_remesh`` on the fine stage;
+     ``tools.bench_infer`` on 3h's checkpoint, 2 frames (exactly 4 mesh
+     launches); ``tools.parity_sweep --stage fine --igr-iters 300`` (sign
+     mismatches 0 at 321x417x225); ``bench_throughput`` at 512x512, fine,
+     6144 rays, 6 steps (steps/s, not a benchmark cell);
   5. splat kernels vs plain on the card at shape A (1080x1080 frame, 134k
      points on a body-sized shell, radius 0.0041), shape B (the trained
      template deformed into frame 0 of the 512x512 scene, radius 0.006),
@@ -679,14 +700,18 @@ def compare_mesh(label, cam, verts, faces, first_faces=None, footprint=8):
 
 def counted(fn, *args, **kw):
     """fn(*args, **kw) with every kernel's launch counter zeroed right
-    before and read right after; returns (result, {kernel: launches})."""
+    before and read right after; returns (result, {kernel: launches}).
+    Prints the seconds the call took."""
     import torch
     from selfreconcode_tpu_torch.ops import mesh_kernels as MK
     from selfreconcode_tpu_torch.ops import splat_kernels as SK
     SK.launches.reset()
     MK.launches.reset()
+    t0 = time.perf_counter()
     out = fn(*args, **kw)
     torch.cuda.synchronize()
+    print(f"  {getattr(fn, '__module__', '')}.{fn.__name__} took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     sk = SK.launches
     return out, {"mesh_raster": MK.launches.mesh_raster_launches,
                  "splat_fwd_cells": sk.splat_fwd_cells_launches,
@@ -1314,6 +1339,133 @@ def bake_on_cpu(cams, d, imgs):
         raise AssertionError("the bake on the card is not the CPU's")
 
 
+def finite_in(x, lo=-math.inf, hi=math.inf):
+    return isinstance(x, (int, float)) and math.isfinite(x) and lo <= x <= hi
+
+
+def acceptance_path(workdir, paths):
+    """Phase 3h: the acceptance flow (``tools.acceptance_run``) on a
+    12-frame 1080^2 subject with phase 3's IGR and skinner caches, the
+    schedule of phase 3e (medium from epoch 1, fine from epoch 2, 2 epochs
+    after the first), inference of 4 frames; then ``tools.host_mask_eval``
+    on those 4 frames.  Returns the subject's root."""
+    from selfreconcode_tpu_torch.tools import acceptance_run as ACC
+    from selfreconcode_tpu_torch.tools import host_mask_eval as HME
+
+    root = osp.join(workdir, "accept")
+    os.makedirs(root)
+    for cache in ("initial_sdf_idr_6_1_torch.pt",
+                  "initial_skinner_1_torch.pt"):
+        shutil.copyfile(osp.join(workdir, "scene", cache),
+                        osp.join(root, cache))
+    conf = stage_conf(workdir, "accept.conf", 1, 2)
+    out, launched = counted(ACC.main, [
+        root, "12", "2", "--conf", conf, "--h", "1080", "--infer-frames",
+        "4", "--device", "cuda"])
+    # the render (1 mesh a frame), 12 frames a stage through the splat
+    # kernels and the fine epoch's debug dump (1 splat mask, 1 mesh), then
+    # inference (2 mesh a frame)
+    exact_launches("acceptance", launched, splat_fwd=37, splat_bwd=36,
+                   mesh_raster=12 + 1 + 2 * 4)
+    paths["acceptance"] = launched
+    steps = {name: n for name, _, n in SCHEDULE}
+    print(f"  acceptance at 1080x1080: train {out['train_s']:.1f} s, infer "
+          f"{out['infer_s']:.1f} s; per stage (median s/step, epoch s): "
+          f"{ {k: (v['median_s_per_step'], v['epoch_s']) for k, v in out['stages'].items()} }; "
+          f"projected onto config.conf's 201 epochs at 450 frames "
+          f"({out['projected_steps']} steps) from this run's "
+          f"{out['projected_from']} steps: {out['projected_h']:.2f} h; "
+          f"maskE mean {out['maskE_mean']}; canonical Chamfer "
+          f"{out['chamfer_l1_mm']} mm (L1), {out['chamfer_l2_mm2']} mm^2 "
+          f"(L2), normal consistency {out['normal_consistency']}",
+          flush=True)
+    if out["projected_from"] != steps:
+        raise AssertionError(f"steps per stage {out['projected_from']}, not "
+                             f"{steps}")
+    bad = [k for k, lo, hi in (
+        ("chamfer_l1_mm", 0, math.inf), ("chamfer_l2_mm2", 0, math.inf),
+        ("normal_consistency", 0, 1), ("maskE_mean", 0, 1),
+        ("maskE_max", 0, 1), ("maskE_min", 0, 1),
+        ("projected_h", 0, math.inf)) if not finite_in(out[k], lo, hi)]
+    if bad:
+        raise AssertionError(f"acceptance values out of range: "
+                             f"{ {k: out[k] for k in bad} }")
+    if not osp.isfile(osp.join(root, "gt_canonical.npz")):
+        raise AssertionError("no gt_canonical.npz")
+
+    hm, launched = counted(HME.main, ["--root", root, "--frames", "4",
+                                      "--device", "cuda"])
+    exact_launches("host_mask_eval", launched, splat_fwd=0, splat_bwd=0,
+                   mesh_raster=0)
+    paths["host_mask_eval"] = launched
+    print(f"  host_mask_eval: {hm}", flush=True)
+    if hm["frames"] != 4 or not all(finite_in(hm[k], 0, 1) for k in (
+            "hole_fraction", "excess_fraction", "maskE_clean_mean",
+            "maskE_dirty_mean")):
+        raise AssertionError(f"host_mask_eval: {hm}")
+    return root
+
+
+def timing_path(workdir, accept_root, paths):
+    """Phase 3i: the timing tools at 1080^2 (profile_step coarse N=3 and
+    fine N=1, bench_outer and bench_remesh on the fine stage), bench_infer
+    on 3h's checkpoint, parity_sweep at the fine resolutions, and
+    bench_throughput at 512^2 fine with 6144 rays."""
+    from selfreconcode_tpu_torch.engine.trainer import bench_throughput
+    from selfreconcode_tpu_torch.tools import bench_infer as BI
+    from selfreconcode_tpu_torch.tools import bench_outer as BO
+    from selfreconcode_tpu_torch.tools import bench_remesh as BR
+    from selfreconcode_tpu_torch.tools import parity_sweep as PSW
+    from selfreconcode_tpu_torch.tools import profile_step as PS
+
+    prof = ["--h", "1080", "--root", osp.join(workdir, "prof"), "--device",
+            "cuda"]
+    n_steps = 3
+    for stage, n in (("coarse", 3), ("fine", 1)):
+        _, launched = counted(PS.main, prof + ["--stage", stage, "--n",
+                                               str(n), "--steps",
+                                               str(n_steps)])
+        # the inner pass: once to set up, then timed (1 warm, the steps, 1
+        # profiled); train_step: 1 warm, the steps, 1 profiled; N frames
+        k = n * (5 + 2 * n_steps)
+        exact_launches(f"profile_step {stage}", launched, splat_fwd=k,
+                       splat_bwd=k, mesh_raster=0)
+        paths[f"profile_step {stage}"] = launched
+    _, launched = counted(BO.main, prof + ["--stage", "fine", "--n", "1",
+                                           "--iters", str(n_steps)])
+    exact_launches("bench_outer", launched, splat_fwd=1, splat_bwd=1,
+                   mesh_raster=0)
+    paths["bench_outer"] = launched
+    _, launched = counted(BR.main, prof + ["--stage", "fine", "--iters",
+                                           "2"])
+    paths["bench_remesh"] = launched
+    frames, launched = counted(BI.main, ["--data", accept_root, "--frames",
+                                         "2", "--device", "cuda"])
+    exact_launches("bench_infer", launched, splat_fwd=0, splat_bwd=0,
+                   mesh_raster=4)
+    paths["bench_infer"] = launched
+    if not all(finite_in(f["mask_err"], 0, 1) for f in frames):
+        raise AssertionError(f"bench_infer: {frames}")
+    igr_iters = 300
+    print(f"  parity_sweep: --igr-iters {igr_iters}", flush=True)
+    res, launched = counted(PSW.main, ["--stage", "fine", "--igr-iters",
+                                       str(igr_iters), "--device", "cuda"])
+    paths["parity_sweep"] = launched
+    if res["res"] != (321, 417, 225) or not res["ok"]:
+        raise AssertionError(f"parity_sweep: {res}")
+    iters = 6
+    (rate, detail), launched = counted(
+        bench_throughput, sample_rays=6144, H=512, W=512, iters=iters,
+        root=osp.join(workdir, "bench"), device="cuda")
+    exact_launches("bench_throughput", launched, splat_fwd=1 + iters,
+                   splat_bwd=1 + iters, mesh_raster=0)
+    paths["bench_throughput"] = launched
+    print(f"  bench_throughput (not a benchmark cell; 512x512 fine, 6144 "
+          f"rays, {iters} steps): {rate:.3f} steps/s, {detail}", flush=True)
+    if not finite_in(rate, 0):
+        raise AssertionError(f"bench_throughput: {rate}")
+
+
 def fine_path(workdir, paths):
     """Phase 3b: the fine stage at 1080^2 through the train CLI; returns
     the trainer."""
@@ -1593,6 +1745,14 @@ def main(argv=None):
         phase("4b", "texture: cli.texture prepare --num 4 and extract "
                     "--tex-size 1024 on phase 3b's checkpoint")
         verts_t, faces_t, cam_t = texture_path(work, paths)
+        phase("3h", "acceptance at 1080x1080: tools.acceptance_run on a "
+                    "12-frame subject (coarse -> medium -> fine, 4 "
+                    "inferred frames), then tools.host_mask_eval")
+        accept_root = acceptance_path(work, paths)
+        phase("3i", "timing: profile_step (coarse, fine), bench_outer, "
+                    "bench_remesh, bench_infer, parity_sweep, "
+                    "bench_throughput")
+        timing_path(work, accept_root, paths)
     launched = {k: sum(p[k] for p in paths.values()) for k in
                 next(iter(paths.values()))}
     print(f"  launches per path: {json.dumps(paths)}; in all {launched} "

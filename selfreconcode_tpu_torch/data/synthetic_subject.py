@@ -152,11 +152,10 @@ class SubjectRig(NamedTuple):
     footprint: int         # raster footprint of the render mesh
 
 
-def subject_rig(H: int, W: int, n_verts: int = 6890, body_res: int = 72,
-                seed: int = 0, device="cuda") -> SubjectRig:
-    """The body, its clothing, the camera and the subdivided render mesh
-    of a subject (``make_synthetic_subject`` renders every frame from it)."""
-    dev = torch.device(device)
+def clothed_body(n_verts: int = 6890, body_res: int = 72, seed: int = 0):
+    """The subject's body wearing its clothing: (the clothed SMPL model,
+    its zero-pose vertices (V, 3), which gt_mesh.npz holds, the clothing
+    offsets (V, 3))."""
     body = synthetic_body_model(n_verts=n_verts, res=body_res, seed=seed)
     verts0, faces = body.v_template, body.faces
     vn0 = vertex_normals(torch.from_numpy(verts0),
@@ -167,6 +166,16 @@ def subject_rig(H: int, W: int, n_verts: int = 6890, body_res: int = 72,
         v_template=canon0, shapedirs=body.shapedirs, posedirs=body.posedirs,
         j_regressor=body.j_regressor, weights=body.weights, faces=faces,
         parents=body.parents)
+    return clothed, canon0, cloth
+
+
+def subject_rig(H: int, W: int, n_verts: int = 6890, body_res: int = 72,
+                seed: int = 0, device="cuda") -> SubjectRig:
+    """The body, its clothing, the camera and the subdivided render mesh
+    of a subject (``make_synthetic_subject`` renders every frame from it)."""
+    dev = torch.device(device)
+    clothed, canon0, cloth = clothed_body(n_verts, body_res, seed)
+    faces = clothed.faces
     # camera (PeopleSnapshot-like), at the origin of the body's frame apart
     # from the vertical offset; world->cam is p @ R + T with R = I
     fx = fy = float(W)

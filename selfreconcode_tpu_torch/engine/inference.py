@@ -28,13 +28,15 @@ from .surface import (SurfaceConfig, optimize_surface_points,
 
 
 def make_infer_fn(trainer, footprint: int = 8, notcolor: bool = False,
-                  chunk: int = 65536):
+                  chunk: int = 65536, early_exit: bool = True):
     """Returns infer_frame(bank, tmp, fid, gt_mask) -> dict of per-frame
     outputs, and infer_frame.batched(bank, tmp, fids, gt_masks) -> list.
 
     The nets and the skinner come from the trainer; `footprint` picks the
     raster cell size (``rasterize_mesh``); `chunk` is the colour solve's
-    batch of hit pixels (clamped to H*W).  Each output dict holds
+    batch of hit pixels (clamped to H*W); `early_exit` ends a chunk's
+    solve once every point converged (``tools/bench_infer.py
+    --no-early-exit`` runs all 30 iterations).  Each output dict holds
     mesh_img, def1_img, color_img (H, W, 3), hit (H, W), mask_err,
     def_verts (nv, 3), and stats: geom_s, color_s (seconds, synchronized),
     hit_pixels, converged_pixels."""
@@ -47,7 +49,8 @@ def make_infer_fn(trainer, footprint: int = 8, notcolor: bool = False,
     # the reference loosens the distance threshold to 1e-4 and runs 30
     # iterations at inference (model/network.py:342-363)
     cfg = SurfaceConfig(n_iters=30, dthreshold=1e-4,
-                        athreshold_deg=trainer.ang_thresh, early_exit=True)
+                        athreshold_deg=trainer.ang_thresh,
+                        early_exit=early_exit)
 
     def clock(dev):
         if dev.type == "cuda":

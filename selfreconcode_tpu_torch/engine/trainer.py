@@ -399,10 +399,10 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
         norms = torch.linalg.norm(gtn_w, dim=-1, keepdim=True)
         return gtn_w / norms.clamp_min(1e-4), norms[..., 0] > 1e-4
 
-    def outer_pass(bank, new_tmp, gtCs, gtNs, fids, init_pts, sel_ok,
+    def outer_loss(bank, new_tmp, gtCs, gtNs, fids, init_pts, sel_ok,
                    ray_rows, ray_cols, ray_binds, windows, ratios, draws):
-        """The rays (and the point terms' points) are this rank's
-        share."""
+        """The outer pass's forward: (total loss with its graph, info).
+        The rays (and the point terms' points) are this rank's share."""
         r_sdf, r_def, r_ren = ratios
         cam = camera_from_bank(bank, H, W, cfg)
         poses, trans, dcond, _ = frame_params(bank, fids)
@@ -526,6 +526,11 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
             anchor = L.sdf_anchor_loss(sdf_net(averts, r_sdf)[0], avalid, 0.0)
             info["pc_loss_sdf"] = anchor
             total = total + anchor * w.pc_weight
+        return total, info
+
+    def outer_pass(*args):
+        """outer_loss, then its backward into the leaves' .grad."""
+        total, info = outer_loss(*args)
         total.backward()
         return total.detach(), {k: v.detach() for k, v in info.items()}
 
@@ -591,6 +596,14 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
         out["frag_overflow"] = 0.0
         return new_tmp, out
 
+    # the passes, for diagnostics (tools/profile_step.py, bench_outer.py):
+    # inner_pass and outer_pass add to the leaves' .grad, so a caller that
+    # repeats them zeroes the gradients between calls
+    step.geom_pass = geom_pass
+    step.inner_pass = inner_pass
+    step.outer_loss = outer_loss
+    step.outer_pass = outer_pass
+    step.ray_pixels = ray_pixels
     return step
 
 
@@ -996,6 +1009,17 @@ class Trainer:
             png(f"n{i}.png", nimg)
 
     # -- one optimization step ---------------------------------------------
+    def step_batch(self, fids, batch: dict):
+        """The step's frame arguments: (gtCs, gtMs, gtNs, fids, windows) on
+        the device, from frames fids and their uint8 batch."""
+        windows, _ = self.dataset.window_indices(fids, self.stage_cfg.window)
+        gtCs, gtMs, gtNs = image_batch(batch, self.device)
+        if gtNs is None:
+            gtNs = torch.zeros_like(gtCs)
+        return (gtCs, gtMs, gtNs,
+                torch.as_tensor(np.asarray(fids), device=self.device),
+                torch.as_tensor(windows, device=self.device))
+
     def train_step(self, fids, batch: dict, lr: float) -> Dict[str, float]:
         cfg = self.stage_cfg
         if self.forward_time % cfg.remesh_intersect == 0:
@@ -1003,16 +1027,11 @@ class Trainer:
         step = self._get_step_fn()
         t0 = time.perf_counter()
         ratios = (1.0, self.opt_times / 2500.0 + 0.5, 1.0)
-        windows, _ = self.dataset.window_indices(fids, cfg.window)
-        gtCs, gtMs, gtNs = image_batch(batch, self.device)
-        if gtNs is None:
-            gtNs = torch.zeros_like(gtCs)
         draws = draw_step_noise(cfg, self.tmp.verts.shape[0], self.generator,
                                 self.device)
-        self.tmp, info = step(
-            self.bank, self.tmp, gtCs, gtMs, gtNs,
-            torch.as_tensor(np.asarray(fids), device=self.device),
-            torch.as_tensor(windows, device=self.device), ratios, lr, draws)
+        self.tmp, info = step(self.bank, self.tmp,
+                              *self.step_batch(fids, batch), ratios, lr,
+                              draws)
         self.timings["steps"].append(time.perf_counter() - t0)
         self.remesh_time = (np.floor(self.remesh_time)
                             + (self.forward_time % cfg.remesh_intersect)
@@ -1025,7 +1044,123 @@ class Trainer:
 
 
 # ---------------------------------------------------------------------------
-# Test resolutions
+# Synthetic end-to-end (tests, timing tools, throughput)
 # ---------------------------------------------------------------------------
 
 _DEFAULT_TEST_RES = [(9, 9, 9), (17, 17, 17), (33, 33, 33)]
+_BENCH_RES = [(17, 17, 17), (33, 33, 33), (65, 65, 65)]
+CONFIGS = osp.join(osp.dirname(osp.dirname(osp.dirname(osp.abspath(
+    __file__)))), "configs")
+
+
+def build_synthetic_trainer(tmp_root: str, n_frames: int = 8, H: int = 96,
+                            W: int = 96, resolutions=None,
+                            smpl_verts: int = 400,
+                            conf_name: str = "config.conf", device="cuda"):
+    """A full trainer on the disk-silhouette scene (``make_synthetic_scene``,
+    written into <tmp_root>/scene unless it is there) and the toy body, with
+    the SDF at its geometric init (no IGR): JAX's build_synthetic_trainer.
+    Returns (trainer, dataset)."""
+    from ..config import parse_file
+    from ..data.dataset import SceneDataset, make_synthetic_scene
+    from ..models.smpl import toy_smpl_model
+
+    scene = osp.join(tmp_root, "scene")
+    if not osp.isdir(osp.join(scene, "imgs")):
+        os.makedirs(scene, exist_ok=True)
+        make_synthetic_scene(scene, n_frames=n_frames, H=H, W=W)
+    ds = SceneDataset(scene, conds_lens={"deformer": 128, "renderer": 256})
+    conf = parse_file(osp.join(CONFIGS, conf_name))
+    res = resolutions or {s: _DEFAULT_TEST_RES
+                          for s in ("coarse", "medium", "fine")}
+    tr = Trainer(ds, toy_smpl_model(n_verts=smpl_verts), conf, res,
+                 skinner_res=(17, 29, 9), device=device)
+    return tr, ds
+
+
+def _bench_trainer(sample_rays: int, H: int, W: int, root, resolutions,
+                   device):
+    """The fine-stage trainer of the throughput runs, remeshed, with
+    sample_rays rays a step."""
+    import tempfile
+    root = root or osp.join(tempfile.gettempdir(), f"srtpu_bench_{H}")
+    os.makedirs(root, exist_ok=True)
+    res = resolutions or _BENCH_RES
+    tr, ds = build_synthetic_trainer(
+        root, n_frames=32, H=H, W=W,
+        resolutions={s: res for s in ("coarse", "medium", "fine")},
+        device=device)
+    tr.set_stage("fine")
+    if tr.rays_per_step() != sample_rays:
+        tr.override_stage(weights=dataclasses.replace(
+            tr.stage_cfg.weights,
+            sample_pix_num=sample_rays // tr.stage_cfg.N))
+    tr.remesh(1.0)
+    return tr, ds
+
+
+BENCH_RATIOS = (1.0, 0.5, 1.0)
+BENCH_LR = 1e-4
+
+
+def build_synthetic_bench_step(sample_rays: int = 6144, H: int = 512,
+                               W: int = 512, root: Optional[str] = None,
+                               resolutions=None, device="cuda"):
+    """The real training step at a production-like scale: returns
+    (run, args), run(*args) taking one step on frames 0..N-1 and returning
+    its loss; run.step is the step, run.trainer its trainer."""
+    tr, ds = _bench_trainer(sample_rays, H, W, root, resolutions, device)
+    step = tr._get_step_fn()
+    cfg = tr.stage_cfg
+    fids = np.arange(cfg.N)
+    draws = draw_step_noise(cfg, tr.tmp.verts.shape[0], tr.generator,
+                            tr.device)
+    args = (tr.bank, tr.tmp, *tr.step_batch(fids, ds.batch_raw(fids)),
+            BENCH_RATIOS, BENCH_LR, draws)
+
+    def run(*a):
+        return step(*a)[1]["loss"]
+
+    run.step = step
+    run.trainer = tr
+    return run, args
+
+
+def bench_throughput(sample_rays: int = 6144, H: int = 512, W: int = 512,
+                     iters: int = 30, n_batches: int = 8,
+                     root: Optional[str] = None, resolutions=None,
+                     device="cuda"):
+    """Steady-state training throughput on a real optimization trajectory:
+    the template and the optimizer state thread through, every iteration
+    feeds another frame batch (rotating over n_batches of the 32-frame
+    scene) and its own draws from the trainer's generator, and the warm
+    remesh at the trained state is amortized at the stage's
+    remesh_intersect.  Returns (steps/s, {step_s, remesh_s,
+    remesh_intersect})."""
+    tr, ds = _bench_trainer(sample_rays, H, W, root, resolutions, device)
+    step = tr._get_step_fn()
+    cfg = tr.stage_cfg
+    nv = tr.tmp.verts.shape[0]
+    fid_groups = [(np.arange(cfg.N) + i * cfg.N) % ds.frame_num
+                  for i in range(n_batches)]
+    batches = [tr.step_batch(f, ds.batch_raw(f)) for f in fid_groups]
+
+    def one(tmp, i):
+        draws = draw_step_noise(cfg, nv, tr.generator, tr.device)
+        return step(tr.bank, tmp, *batches[i % n_batches], BENCH_RATIOS,
+                    BENCH_LR, draws)[0]
+
+    tmp = one(tr.tmp, 0)            # the first step, out of the timing
+    tr._sync()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        tmp = one(tmp, i)
+    tr._sync()
+    step_s = (time.perf_counter() - t0) / iters
+
+    tr.tmp = tmp
+    tr.remesh(1.0)                  # synchronized; its seconds in timings
+    remesh_s = tr.timings["remesh"]
+    eff_s = step_s + remesh_s / max(cfg.remesh_intersect, 1)
+    return 1.0 / eff_s, {"step_s": step_s, "remesh_s": remesh_s,
+                         "remesh_intersect": cfg.remesh_intersect}

@@ -1,5 +1,6 @@
 """Coarse-to-fine sparse SDF grid evaluation, the octree sweep (torch port of
-``selfreconcode_tpu/ops/sparse_sdf.py::sparse_sdf_grid``).
+``selfreconcode_tpu/ops/sparse_sdf.py``: ``sparse_sdf_grid`` and
+``interp2x_boundary3d``).
 
 Evaluate the SDF on a coarse grid, upsample 2x, re-query only the voxels
 whose 3^3 neighbourhood straddles the iso level, and repeat; a re-queried
@@ -98,3 +99,13 @@ def sparse_sdf_grid(query_fn: Callable[[torch.Tensor], torch.Tensor],
                 break
             conf = query(_dilate3(conf) & ~queried)
     return vol
+
+
+def interp2x_boundary3d(vol: torch.Tensor, balance: float, dilate: int = 1):
+    """2x upsample (exact at even indices, linear between) and the
+    sign-boundary flags of the upsampled volume: (up (2n-1, ...),
+    is_boundary).  The reference's optional CUDA path for the sweep
+    (MCAcc/cuda/interp2x_boundary3d*.cu), which its shipped call sites
+    leave off; differentiable in vol."""
+    up = _upsample2(vol)
+    return up, _boundary_mask(up, balance, dilate)

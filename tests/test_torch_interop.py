@@ -103,8 +103,10 @@ def _sources():
 
 
 @pytest.mark.parametrize("pattern", [r"^\s*import jax", r"^\s*from jax",
-                                     r"optax", r"selfreconcode_tpu\."])
+                                     r"optax", r"selfreconcode_tpu\.",
+                                     r"^\s*(from|import) tools\b"])
 def test_port_never_imports_jax_or_the_jax_package(pattern):
+    """Nor the repository's root tools/ (the port keeps its own copies)."""
     hits = []
     for path in _sources():
         with open(path) as fh:
