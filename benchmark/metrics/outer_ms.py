@@ -1,0 +1,8 @@
+"""outer_ms: the outer pass's host time per step, in ms: the program's
+``step.outer`` span (surface solve, losses and their backward) over the
+steps run with the program's tracing on (``program_trace.py``)."""
+from benchmark.program_trace import measure, span_ms  # noqa: F401
+
+
+def read(run):
+    return span_ms(run, "step.outer")

@@ -703,21 +703,25 @@ def counted(fn, *args, **kw):
     before and read right after; returns (result, {kernel: launches}).
     Prints the seconds the call took."""
     import torch
-    from selfreconcode_tpu_torch.ops import mesh_kernels as MK
-    from selfreconcode_tpu_torch.ops import splat_kernels as SK
-    SK.launches.reset()
-    MK.launches.reset()
+    launch_counts()
     t0 = time.perf_counter()
     out = fn(*args, **kw)
     torch.cuda.synchronize()
     print(f"  {getattr(fn, '__module__', '')}.{fn.__name__} took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    sk = SK.launches
-    return out, {"mesh_raster": MK.launches.mesh_raster_launches,
-                 "splat_fwd_cells": sk.splat_fwd_cells_launches,
-                 "splat_fwd": sk.splat_fwd_launches,
-                 "splat_bwd": sk.splat_bwd_launches,
-                 "splat_bwd_cells": sk.splat_bwd_cells_launches}
+    return out, launch_counts()
+
+
+KERNELS = ("mesh_raster", "splat_fwd_cells", "splat_fwd", "splat_bwd",
+           "splat_bwd_cells")
+
+
+def launch_counts():
+    """{kernel: launches} counted since the last read, from the port's
+    trace registry (``utils/trace.py``), which the read clears."""
+    from selfreconcode_tpu_torch.utils import trace
+    c = trace.read_and_clear()["counters"]
+    return {k: c.get(f"{k}_launches", 0) for k in KERNELS}
 
 
 def need_launches(path, launched, **least):
@@ -1039,34 +1043,25 @@ class StepRecorder:
     def __call__(self, trainer):
         import torch
         from selfreconcode_tpu_torch import parallel as D
-        from selfreconcode_tpu_torch.ops import mesh_kernels as MK
-        from selfreconcode_tpu_torch.ops import splat_kernels as SK
         if self.deterministic:
             os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
             torch.use_deterministic_algorithms(True, warn_only=True)
         if not D.is_main():
             return
-        SK.launches.reset()
-        MK.launches.reset()
+        launch_counts()
+        launched = dict.fromkeys(KERNELS, 0)
         step = trainer.train_step
 
         def recorded(*args, **kw):
             info = step(*args, **kw)
             torch.cuda.synchronize()
-            sk = SK.launches
+            for k, n in launch_counts().items():
+                launched[k] += n
             with open(self.path, "w") as f:
                 json.dump({"history": trainer.history,
                            "steps": trainer.timings["steps"],
                            "dp_setup": trainer.timings.get("dp_setup"),
-                           "launches": {
-                               "mesh_raster":
-                                   MK.launches.mesh_raster_launches,
-                               "splat_fwd_cells":
-                                   sk.splat_fwd_cells_launches,
-                               "splat_fwd": sk.splat_fwd_launches,
-                               "splat_bwd": sk.splat_bwd_launches,
-                               "splat_bwd_cells":
-                                   sk.splat_bwd_cells_launches}}, f)
+                           "launches": launched}, f)
             return info
 
         trainer.train_step = recorded

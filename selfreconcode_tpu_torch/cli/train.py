@@ -18,6 +18,10 @@ rendezvous through a FileStore in the save folder.  Rank 0 alone builds
 the skinner and IGR caches (the others then load them), prints the report
 and writes the checkpoints and the debug dump.  A rank that fails fails
 the CLI.
+
+``--trace`` records the training step's spans and counters
+(``utils/trace.py``) and prints one line at each epoch's end
+(``trace_report``).
 """
 from __future__ import annotations
 
@@ -73,6 +77,11 @@ def parse_args(argv=None):
                         "gradient all-reduce per step")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda)")
+    p.add_argument("--trace", action="store_true",
+                   help="record the step's spans and counters and print, at "
+                        "each epoch's end, each span's ms per step (duration"
+                        " and self), host syncs per step and the surface "
+                        "solve's converged rays")
     args = p.parse_args(argv)
     if args.gpu_ids is not None:
         p.error("--gpu-ids is not supported; choose the card with --device "
@@ -183,6 +192,7 @@ def train(args, resolutions=None, skinner_res=None, tune=None,
     from ..engine.checkpoint import (load_checkpoint, load_sdf_state,
                                      save_checkpoint)
     from ..engine.trainer import Trainer
+    from ..utils import trace
 
     name = args.device
     if dp_setup_s is not None and name == "cuda":
@@ -260,6 +270,9 @@ def train(args, resolutions=None, skinner_res=None, tune=None,
     fine_at = conf.get_int("train.fine.start_epoch")
     sampler = RandomSampler(dataset.frame_num, 1, conf.get_bool("train.shuffle"))
     in_fine = False
+    if args.trace:
+        trace.read_and_clear()
+        trace.enable()
 
     for epoch in range(start_epoch, nepoch + 1):
         if medium_at >= 0 and epoch == medium_at:
@@ -296,11 +309,39 @@ def train(args, resolutions=None, skinner_res=None, tune=None,
                     trainer.save_debug(debug_root, np.asarray(fids), batch)
                 drew = True
         print(f"epoch {epoch} took {time.time() - t_epoch:.1f}s", flush=True)
+        if args.trace:
+            print(trace_report(epoch, trace.read_and_clear()), flush=True)
         if D.is_main():
             save_checkpoint(osp.join(save_root, "latest.pt"), trainer,
                             epoch + 1)
     print("training done.", flush=True)
     return trainer
+
+
+def trace_report(epoch: int, rec: dict) -> str:
+    """The --trace line of an epoch from its record
+    (``trace.read_and_clear``): per step, each span's ms as duration/self
+    (in the order the spans first started), the host syncs, and the mean
+    converged rays of the surface solve before its first iteration and
+    after each."""
+    n = sum(s["name"] == "train_step" for s in rec["spans"])
+    if not n:
+        return f"trace epoch {epoch}: no step"
+    tot = {}
+    for s in sorted(rec["spans"], key=lambda s: s["start"]):
+        d, own = tot.get(s["name"], (0.0, 0.0))
+        tot[s["name"]] = (d + s["end"] - s["start"], own + s["self"])
+    out = (f"trace epoch {epoch} ({n} steps; ms per step, duration/self): "
+           + ", ".join(f"{k} {1e3 * d / n:.1f}/{1e3 * own / n:.1f}"
+                       for k, (d, own) in tot.items())
+           + f"; host_syncs {rec['counters'].get('host_syncs', 0) / n:.1f}"
+           f" per step")
+    rows = rec["device"].get("solve_converged", [])
+    rows = [r for r in rows if len(r) == len(rows[-1])]
+    if rows:
+        mean = np.mean(rows, axis=0)
+        out += "; solve_converged " + " ".join(f"{v:.1f}" for v in mean)
+    return out
 
 
 def report(trainer, epoch, di, info, dt):

@@ -33,6 +33,7 @@ import torch
 
 from ..models.deformer import deformer_apply, deformer_jacobian
 from ..models.sdf import sdf_value_and_grad
+from ..utils import trace
 from ..utils.math import cross_matrix, inv3x3
 
 
@@ -110,28 +111,37 @@ def _detached(dcond, poses, trans, rays, cam_c):
 
 def _newton(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, det, init_pts,
             batch_inds):
-    """The Newton loop on detached inputs: (pts, converged, B at pts)."""
-    pts = init_pts.detach()
-    done = torch.zeros(pts.shape[0], dtype=torch.bool, device=pts.device)
-    eye = torch.eye(3, dtype=pts.dtype, device=pts.device)
-    for _ in range(cfg.n_iters):
-        if cfg.early_exit and bool(done.all()):
-            break
+    """The Newton loop on detached inputs: (pts, converged, B at pts).
+    Records the converged counts at each test (``solve_converged``)."""
+    with trace.span("step.outer.solve"):
+        pts = init_pts.detach()
+        done = torch.zeros(pts.shape[0], dtype=torch.bool, device=pts.device)
+        eye = torch.eye(3, dtype=pts.dtype, device=pts.device)
+        dones = []
+        for _ in range(cfg.n_iters):
+            if cfg.early_exit:
+                trace.count("host_syncs")
+                if bool(done.all()):
+                    break
+            F, B, sdf, sin_ang = _constraint_and_B(nets, pts, batch_inds,
+                                                   ratio_sdf=ratio_sdf,
+                                                   ratio_def=ratio_def, **det)
+            done = done | _converged(sdf, sin_ang, cfg)
+            dones.append(done)
+            btb = torch.einsum("nki,nkj->nij", B, B) + 1e-9 * eye
+            inv, ok = inv3x3(btb, det_eps=1e-12)
+            dp = -torch.einsum("nij,nkj,nk->ni", inv, B, F)
+            nrm = torch.linalg.norm(dp, dim=-1, keepdim=True)
+            dp = dp * torch.clamp(cfg.step_clip / nrm.clamp_min(1e-20),
+                                  max=1.0)
+            dp = torch.where((done | ~ok)[:, None], torch.zeros_like(dp), dp)
+            pts = pts + dp
         F, B, sdf, sin_ang = _constraint_and_B(nets, pts, batch_inds,
                                                ratio_sdf=ratio_sdf,
                                                ratio_def=ratio_def, **det)
         done = done | _converged(sdf, sin_ang, cfg)
-        btb = torch.einsum("nki,nkj->nij", B, B) + 1e-9 * eye
-        inv, ok = inv3x3(btb, det_eps=1e-12)
-        dp = -torch.einsum("nij,nkj,nk->ni", inv, B, F)
-        nrm = torch.linalg.norm(dp, dim=-1, keepdim=True)
-        dp = dp * torch.clamp(cfg.step_clip / nrm.clamp_min(1e-20), max=1.0)
-        dp = torch.where((done | ~ok)[:, None], torch.zeros_like(dp), dp)
-        pts = pts + dp
-    F, B, sdf, sin_ang = _constraint_and_B(nets, pts, batch_inds,
-                                           ratio_sdf=ratio_sdf,
-                                           ratio_def=ratio_def, **det)
-    return pts, done | _converged(sdf, sin_ang, cfg), B
+        trace.count("solve_converged", dones + [done])
+        return pts, done, B
 
 
 def _cauchy(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, det, init_pts,
@@ -141,24 +151,31 @@ def _cauchy(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, det, init_pts,
     and after every step; a converged point stays where it is.  One pass
     at each iterate gives both its convergence test and its gradient, so
     the loop evaluates the losses n_iters + 1 times where JAX's body
-    evaluates them twice per iteration; the values are the same."""
-    pts = init_pts.detach()
-    done = None
-    for i in range(cfg.n_iters + 1):
-        step = i < cfg.n_iters
-        with torch.set_grad_enabled(step):
-            p = pts.detach().requires_grad_(step)
-            loss, sdf, sin_ang = _point_losses(nets, p, batch_inds,
-                                               ratio_sdf=ratio_sdf,
-                                               ratio_def=ratio_def, **det)
-        now = _converged(sdf.detach(), sin_ang.detach(), cfg)
-        done = now if done is None else done | now
-        if not step or (cfg.early_exit and bool(done.all())):
-            break
-        (g,) = torch.autograd.grad(loss.sum(), p)
-        t = -loss.detach() / (g * g).sum(-1).clamp_min(1e-20)
-        pts = torch.where(done[:, None], pts, pts + t[:, None] * g)
-    return pts, done
+    evaluates them twice per iteration; the values are the same.  Records
+    the converged counts at each test (``solve_converged``)."""
+    with trace.span("step.outer.solve"):
+        pts = init_pts.detach()
+        dones = []
+        for i in range(cfg.n_iters + 1):
+            step = i < cfg.n_iters
+            with torch.set_grad_enabled(step):
+                p = pts.detach().requires_grad_(step)
+                loss, sdf, sin_ang = _point_losses(nets, p, batch_inds,
+                                                   ratio_sdf=ratio_sdf,
+                                                   ratio_def=ratio_def, **det)
+            now = _converged(sdf.detach(), sin_ang.detach(), cfg)
+            dones.append(now if not dones else dones[-1] | now)
+            if not step:
+                break
+            if cfg.early_exit:
+                trace.count("host_syncs")
+                if bool(dones[-1].all()):
+                    break
+            (g,) = torch.autograd.grad(loss.sum(), p)
+            t = -loss.detach() / (g * g).sum(-1).clamp_min(1e-20)
+            pts = torch.where(dones[-1][:, None], pts, pts + t[:, None] * g)
+        trace.count("solve_converged", dones)
+        return pts, dones[-1]
 
 
 def optimize_surface_points(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def,

@@ -49,6 +49,7 @@ from ..ops.sparse_sdf import grid_world_coords, sparse_sdf_grid
 from ..render.camera import (Camera, ang_threshold, cam_pos, make_camera,
                              transform_points_screen, view_rays)
 from ..utils import meshops
+from ..utils import trace
 from ..utils.math import (dct_null_space, gm_robust, inv3x3,
                           log_singular_values_sq_sum, normalize, quat2mat)
 from ..utils.sampling import sample_points, subsample_mask_topk
@@ -207,6 +208,7 @@ def grad_mask_tree(bank, cfg: StageStatic) -> Dict[str, bool]:
 def image_batch(batch: dict, device) -> Tuple[torch.Tensor, ...]:
     """uint8 batch -> (colours in [-1,1] BGR, mask {0,1}, normals in [-1,1]
     or None) float32 on device."""
+    trace.count("host_syncs", 2)     # the two copies below
     img = torch.as_tensor(batch["img"], device=device)
     mask = torch.as_tensor(batch["mask"], device=device)
     if img.dtype == torch.uint8:
@@ -215,6 +217,7 @@ def image_batch(batch: dict, device) -> Tuple[torch.Tensor, ...]:
         mask = mask.float()
     nrm = batch.get("normal")
     if nrm is not None:
+        trace.count("host_syncs")
         nrm = torch.as_tensor(nrm, device=device)
         if nrm.dtype == torch.uint8:
             nrm = 2.0 * nrm.float() / 255.0 - 1.0
@@ -244,6 +247,7 @@ def point_seeds(cam: Camera, verts: torch.Tensor, def_verts: torch.Tensor):
         ok = (z > 0.0) & (col >= 0) & (col < W) & (row >= 0) & (row < H)
         pix = row.clamp(0, H - 1) * W + col.clamp(0, W - 1)
         zimg = torch.full((H * W,), big, device=dev)
+        trace.count("host_syncs", 4)     # the four masked selections below
         zimg.scatter_reduce_(0, pix[ok], z[ok], "amin")
         win = ok & (z <= zimg[pix])
         vid = torch.full((H * W,), nv, dtype=torch.long, device=dev)
@@ -276,8 +280,8 @@ def fragment_seeds(cam: Camera, verts: torch.Tensor, faces: torch.Tensor,
 STEP_INFO_KEYS = (
     "ray_converged", "grad_loss", "offset_loss", "def_loss", "dct_loss",
     "inv_ok", "color_loss", "normal_loss", "pc_loss_sdf", "pc_mask_loss",
-    "splat_max_cell", "splat_active", "pc_lap_loss", "pc_edge_loss",
-    "pc_norm_loss", "pc_defconst_loss", "pred_mask_sum", "loss")
+    "pc_lap_loss", "pc_edge_loss", "pc_norm_loss", "pc_defconst_loss",
+    "pred_mask_sum", "loss")
 
 
 def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
@@ -316,7 +320,7 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
         return poses, trans, bank["dcond"][fids], bank["rcond"][fids]
 
     def geom_pass(bank, tmp, gtMs, fids, r_def, draws):
-        with torch.no_grad():
+        with trace.span("step.geom"), torch.no_grad():
             cam = camera_from_bank(bank, H, W, cfg)
             poses, trans, dcond, _ = frame_params(bank, fids)
             nv = tmp.verts.shape[0]
@@ -338,50 +342,48 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
             return inits.reshape(-1, 3)[idx], sel_ok, idx, mgtMs
 
     def inner_pass(bank, tmp, fids, mgtMs, r_def):
-        tv = tmp.verts.detach().requires_grad_(True)
-        nv = tv.shape[0]
-        cam = camera_from_bank(bank, H, W, cfg)
-        poses, trans, dcond, _ = frame_params(bank, fids)
-        binds = torch.arange(N, device=tv.device).repeat_interleave(nv)
-        def_verts = deformer_apply(translator, skinner, tv.repeat(N, 1), binds,
-                                   dcond, poses, trans, r_def)[0].reshape(
-                                       N, nv, 3)
-        valid = torch.ones(nv, dtype=torch.bool, device=tv.device)
-        outs = [splat_mask(cam, def_verts[i], valid, cfg.radius,
-                           return_stats=True) for i in range(N)]
-        masks = torch.stack([m for m, _ in outs])
-        stats = torch.stack([s for _, s in outs])
-        mask_loss = L.iou_mask_loss(masks, mgtMs)
-        loss = mask_loss * w.pc_mask_weight
-        info = {"pc_mask_loss": mask_loss.detach(),
-                "splat_max_cell": stats[:, 0].max(),
-                "splat_active": stats[:, 1].max()}
-        if w.laplacian_weight > 0.0:
-            lap = meshops.uniform_laplacian_loss(tv, tmp.topo.edges)
-            loss = loss + w.laplacian_weight * lap
-            info["pc_lap_loss"] = lap.detach()
-        if w.edge_weight > 0.0:
-            el = meshops.edge_length_loss(tv, tmp.topo.edges)
-            loss = loss + w.edge_weight * el
-            info["pc_edge_loss"] = el.detach()
-        if w.norm_weight > 0.0:
-            nc = meshops.normal_consistency_loss(tv, tmp.faces, tmp.topo)
-            loss = loss + w.norm_weight * nc
-            info["pc_norm_loss"] = nc.detach()
-        if w.def_consistent_weight > 0.0:
-            lbs_b = skinner_apply_shared(skinner, tv, poses, trans)
-            dc = L.def_consistency_loss(def_verts, lbs_b, valid,
-                                        w.def_consistent_c)
-            loss = loss + w.def_consistent_weight * dc
-            info["pc_defconst_loss"] = dc.detach()
-        loss.backward()
-        # torch SGD(momentum=0.9, lr=0.05): buf = 0.9*buf + g; v -= lr*buf
-        with torch.no_grad():
-            mom = 0.9 * tmp.momentum + tv.grad
-            new_tmp = dataclasses.replace(tmp, verts=tmp.verts - 0.05 * mom,
-                                          momentum=mom)
-        info["pred_mask_sum"] = masks.detach().sum()
-        return new_tmp, loss.detach(), info
+        with trace.span("step.inner"):
+            tv = tmp.verts.detach().requires_grad_(True)
+            nv = tv.shape[0]
+            cam = camera_from_bank(bank, H, W, cfg)
+            poses, trans, dcond, _ = frame_params(bank, fids)
+            binds = torch.arange(N, device=tv.device).repeat_interleave(nv)
+            def_verts = deformer_apply(translator, skinner, tv.repeat(N, 1),
+                                       binds, dcond, poses, trans,
+                                       r_def)[0].reshape(N, nv, 3)
+            valid = torch.ones(nv, dtype=torch.bool, device=tv.device)
+            masks = torch.stack([splat_mask(cam, def_verts[i], valid,
+                                            cfg.radius) for i in range(N)])
+            mask_loss = L.iou_mask_loss(masks, mgtMs)
+            loss = mask_loss * w.pc_mask_weight
+            info = {"pc_mask_loss": mask_loss.detach()}
+            if w.laplacian_weight > 0.0:
+                lap = meshops.uniform_laplacian_loss(tv, tmp.topo.edges)
+                loss = loss + w.laplacian_weight * lap
+                info["pc_lap_loss"] = lap.detach()
+            if w.edge_weight > 0.0:
+                el = meshops.edge_length_loss(tv, tmp.topo.edges)
+                loss = loss + w.edge_weight * el
+                info["pc_edge_loss"] = el.detach()
+            if w.norm_weight > 0.0:
+                nc = meshops.normal_consistency_loss(tv, tmp.faces, tmp.topo)
+                loss = loss + w.norm_weight * nc
+                info["pc_norm_loss"] = nc.detach()
+            if w.def_consistent_weight > 0.0:
+                lbs_b = skinner_apply_shared(skinner, tv, poses, trans)
+                dc = L.def_consistency_loss(def_verts, lbs_b, valid,
+                                            w.def_consistent_c)
+                loss = loss + w.def_consistent_weight * dc
+                info["pc_defconst_loss"] = dc.detach()
+            loss.backward()
+            # torch SGD(momentum=0.9, lr=0.05): buf = 0.9*buf + g;
+            # v -= lr*buf
+            with torch.no_grad():
+                mom = 0.9 * tmp.momentum + tv.grad
+                new_tmp = dataclasses.replace(
+                    tmp, verts=tmp.verts - 0.05 * mom, momentum=mom)
+            info["pred_mask_sum"] = masks.detach().sum()
+            return new_tmp, loss.detach(), info
 
     def share_mean(v, n_all: int):
         """v.mean() over this rank's rows, as its part of the mean over
@@ -392,6 +394,7 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
     def gt_normals(cam, gtNs, ray_binds, ray_rows, ray_cols):
         """The rays' GT normals in world space, unit length, and where they
         are valid (a map's zero normal is not)."""
+        trace.count("host_syncs")
         flip = torch.tensor([[-1.0, 0, 0], [0, 1.0, 0], [0, 0, -1.0]],
                             device=gtNs.device)
         gtn = gtNs[ray_binds, ray_rows, ray_cols]
@@ -478,6 +481,7 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
                 wposes = wposes.detach()
             Nw = windows.shape[1]
             pj = posed_skeleton(skinner, wposes.reshape(N * Nw, 24, 3))
+            trace.count("host_syncs")
             dct_loss = L.dct_prior_loss(
                 torch.as_tensor(dctnull, device=pj.device),
                 pj.reshape(N, Nw, 24, 3))
@@ -530,9 +534,11 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
 
     def outer_pass(*args):
         """outer_loss, then its backward into the leaves' .grad."""
-        total, info = outer_loss(*args)
-        total.backward()
-        return total.detach(), {k: v.detach() for k, v in info.items()}
+        with trace.span("step.outer"):
+            total, info = outer_loss(*args)
+            with trace.span("step.outer.backward"):
+                total.backward()
+            return total.detach(), {k: v.detach() for k, v in info.items()}
 
     def ray_pixels(idx):
         """(frame, row, column) of each selected pixel id."""
@@ -567,33 +573,36 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
         unknown = set(info) - set(STEP_INFO_KEYS)
         if unknown:
             raise KeyError(f"info keys outside STEP_INFO_KEYS: {unknown}")
-        # one all-reduce: the gradients, which leaves have one on some rank,
-        # and the info values with which keys some rank set
-        leaves = [p for g in optimizer.param_groups for p in g["params"]]
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in leaves]
-        has_grad = torch.tensor([float(p.grad is not None) for p in leaves],
-                                device=dev)
-        zero = torch.zeros((), device=dev)
-        vals = torch.stack([info[k].float() if k in info else zero
-                            for k in STEP_INFO_KEYS])
-        present = torch.tensor([float(k in info) for k in STEP_INFO_KEYS],
-                               device=dev)
-        D.allreduce_sum_(grads + [has_grad, vals, present])
-        for p, g, h in zip(leaves, grads, has_grad.tolist()):
-            if h > 0 and p.grad is None:
-                p.grad = g
-        with torch.no_grad():
-            for k, trainable in grad_mask_tree(bank, cfg).items():
-                if not trainable and bank[k].grad is not None:
-                    bank[k].grad.zero_()
-        for group in optimizer.param_groups:
-            group["lr"] = float(lr)
-        optimizer.step()
-        out = {k: v for k, v, n in zip(STEP_INFO_KEYS, vals.tolist(),
-                                       present.tolist()) if n > 0}
-        out["splat_overflow"] = 0.0   # no candidate capacity: nothing drops
-        out["frag_overflow"] = 0.0
+        with trace.span("step.update"):
+            # one all-reduce: the gradients, which leaves have one on some
+            # rank, and the info values with which keys some rank set
+            leaves = [p for g in optimizer.param_groups for p in g["params"]]
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in leaves]
+            # two copies in (has_grad, present), three out (has_grad, the
+            # readback of vals and present)
+            trace.count("host_syncs", 5)
+            has_grad = torch.tensor([float(p.grad is not None)
+                                     for p in leaves], device=dev)
+            zero = torch.zeros((), device=dev)
+            vals = torch.stack([info[k].float() if k in info else zero
+                                for k in STEP_INFO_KEYS])
+            present = torch.tensor([float(k in info) for k in STEP_INFO_KEYS],
+                                   device=dev)
+            D.allreduce_sum_(grads + [has_grad, vals, present])
+            for p, g, h in zip(leaves, grads, has_grad.tolist()):
+                if h > 0 and p.grad is None:
+                    p.grad = g
+            with torch.no_grad():
+                for k, trainable in grad_mask_tree(bank, cfg).items():
+                    if not trainable and bank[k].grad is not None:
+                        bank[k].grad.zero_()
+            for group in optimizer.param_groups:
+                group["lr"] = float(lr)
+            optimizer.step()
+            # the readback, with the device counters of the step (if any)
+            out = {k: v for k, v, n in zip(STEP_INFO_KEYS, trace.tolist(vals),
+                                           present.tolist()) if n > 0}
         return new_tmp, out
 
     # the passes, for diagnostics (tools/profile_step.py, bench_outer.py):
@@ -762,12 +771,14 @@ class Trainer:
         grow_left = self._grow_left()
         for tries in range(4):
             with torch.no_grad():
-                vol = sparse_sdf_grid(self._query_fn(ratio_sdf), res,
-                                      self.b_min, self.b_max, 0.0,
-                                      device=self.device)
-                spacing, origin = grid_world_coords(res[-1], self.b_min,
-                                                    self.b_max, self.device)
-                mc = marching_cubes(vol, origin, spacing, 0.0)
+                with trace.span("remesh.sweep"):
+                    vol = sparse_sdf_grid(self._query_fn(ratio_sdf), res,
+                                          self.b_min, self.b_max, 0.0,
+                                          device=self.device)
+                with trace.span("remesh.mc"):
+                    spacing, origin = grid_world_coords(
+                        res[-1], self.b_min, self.b_max, self.device)
+                    mc = marching_cubes(vol, origin, spacing, 0.0)
             nv = mc.verts.shape[0]
             sides = mc.boundary_sides.copy()
             if mc.n_boundary > 0 and not sides.any():
@@ -807,11 +818,11 @@ class Trainer:
         return mc
 
     def remesh(self, ratio_sdf: float):
-        t0 = time.perf_counter()
-        verts, faces = self._remesh_on_main(ratio_sdf)
-        self.tmp = make_template(verts, faces)
-        self._sync()
-        self.timings["remesh"] = time.perf_counter() - t0
+        with trace.span("remesh") as sp:
+            verts, faces = self._remesh_on_main(ratio_sdf)
+            self.tmp = make_template(verts, faces)
+            self._sync()
+        self.timings["remesh"] = sp.seconds
         self.remesh_time = 1.0 + np.floor(self.remesh_time)
         return verts.shape[0], faces.shape[0]
 
@@ -819,6 +830,7 @@ class Trainer:
         """What a remesh may change on the host: the sweep bbox, its growth
         budget, the raster footprint and the boundary warning."""
         fp = self.stage_cfg.raster_footprint if self.stage_cfg else 0
+        trace.count("host_syncs")
         return torch.tensor(np.concatenate([
             self.b_min, self.b_max, self._grow_left(),
             [fp, float(self._warned_boundary)]]), dtype=torch.float64,
@@ -831,17 +843,20 @@ class Trainer:
         if D.is_main():
             mc = self.discretize_sdf(ratio_sdf)
             verts, faces = mc.verts, mc.faces
+            trace.count("host_syncs")
             sizes = torch.tensor([verts.shape[0], faces.shape[0]],
                                  device=dev)
         else:
             sizes = torch.zeros(2, dtype=torch.long, device=dev)
         D.broadcast_([sizes])
         if not D.is_main():
+            trace.count("host_syncs")
             nv, nf = sizes.tolist()
             verts = torch.empty(nv, 3, device=dev)
             faces = torch.empty(nf, 3, dtype=torch.long, device=dev)
         host = self._host_state()
         D.broadcast_([verts, faces, host])
+        trace.count("host_syncs")
         h = host.cpu().numpy()
         self.b_min = h[0:3].astype(self.b_min.dtype)
         self.b_max = h[3:6].astype(self.b_max.dtype)
@@ -1013,6 +1028,7 @@ class Trainer:
         """The step's frame arguments: (gtCs, gtMs, gtNs, fids, windows) on
         the device, from frames fids and their uint8 batch."""
         windows, _ = self.dataset.window_indices(fids, self.stage_cfg.window)
+        trace.count("host_syncs", 2)     # the copies of fids and windows
         gtCs, gtMs, gtNs = image_batch(batch, self.device)
         if gtNs is None:
             gtNs = torch.zeros_like(gtCs)
@@ -1021,26 +1037,28 @@ class Trainer:
                 torch.as_tensor(windows, device=self.device))
 
     def train_step(self, fids, batch: dict, lr: float) -> Dict[str, float]:
-        cfg = self.stage_cfg
-        if self.forward_time % cfg.remesh_intersect == 0:
-            self.remesh(1.0)
-        step = self._get_step_fn()
-        t0 = time.perf_counter()
-        ratios = (1.0, self.opt_times / 2500.0 + 0.5, 1.0)
-        draws = draw_step_noise(cfg, self.tmp.verts.shape[0], self.generator,
-                                self.device)
-        self.tmp, info = step(self.bank, self.tmp,
-                              *self.step_batch(fids, batch), ratios, lr,
-                              draws)
-        self.timings["steps"].append(time.perf_counter() - t0)
-        self.remesh_time = (np.floor(self.remesh_time)
-                            + (self.forward_time % cfg.remesh_intersect)
-                            / cfg.remesh_intersect)
-        self.forward_time += 1
-        self.opt_times += 1
-        info["remesh"] = self.remesh_time
-        self.history.append(info)
-        return info
+        with trace.span("train_step"):
+            cfg = self.stage_cfg
+            if self.forward_time % cfg.remesh_intersect == 0:
+                self.remesh(1.0)
+            step = self._get_step_fn()
+            t0 = time.perf_counter()
+            ratios = (1.0, self.opt_times / 2500.0 + 0.5, 1.0)
+            with trace.span("step.feed"):
+                draws = draw_step_noise(cfg, self.tmp.verts.shape[0],
+                                        self.generator, self.device)
+                frames = self.step_batch(fids, batch)
+            self.tmp, info = step(self.bank, self.tmp, *frames, ratios, lr,
+                                  draws)
+            self.timings["steps"].append(time.perf_counter() - t0)
+            self.remesh_time = (np.floor(self.remesh_time)
+                                + (self.forward_time % cfg.remesh_intersect)
+                                / cfg.remesh_intersect)
+            self.forward_time += 1
+            self.opt_times += 1
+            info["remesh"] = self.remesh_time
+            self.history.append(info)
+            return info
 
 
 # ---------------------------------------------------------------------------

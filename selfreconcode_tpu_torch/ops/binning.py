@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
+
 
 def bbox_cell_entries(bb_min_x, bb_min_y, bb_max_x, bb_max_y, valid,
                       cell_size: int, ncx: int, ncy: int):
@@ -25,6 +27,7 @@ def bbox_cell_entries(bb_min_x, bb_min_y, bb_max_x, bb_max_y, valid,
     nx = cx1.clamp(0, ncx - 1) - xa + 1
     ny = cy1.clamp(0, ncy - 1) - ya + 1
     per = torch.where(ok, nx * ny, torch.zeros_like(nx))
+    trace.count("host_syncs")
     total = int(per.sum())
     prim = torch.repeat_interleave(torch.arange(n, device=per.device), per,
                                    output_size=total)

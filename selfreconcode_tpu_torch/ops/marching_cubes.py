@@ -19,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from .mc_tables import MAX_TRIS, N_TRIS, TRI_TABLE
 
 _EDGE_AXIS = np.repeat(np.arange(3), 4).astype(np.int64)
@@ -54,6 +55,7 @@ def marching_cubes(volume: torch.Tensor, origin, spacing,
     sizes = [c.numel() for c in cross]
     flat_cross = torch.cat([c.reshape(-1) for c in cross])
     vid = torch.cumsum(flat_cross.long(), 0) - flat_cross.long()
+    trace.count("host_syncs", 2)     # n_boundary, boundary_sides
     n_boundary = int(cross[0][:, -1, :].sum() + cross[0][:, :-1, -1].sum()
                      + cross[1][-1, :, :].sum() + cross[1][:-1, :, -1].sum()
                      + cross[2][-1, :, :].sum() + cross[2][:-1, -1, :].sum())
@@ -67,6 +69,7 @@ def marching_cubes(volume: torch.Tensor, origin, spacing,
     # though the faces of its neighbouring cube use it)
     verts = []
     for axis in range(3):
+        trace.count("host_syncs", 2)
         ijk = torch.nonzero(cross[axis])
         step = torch.zeros(3, dtype=torch.long, device=dev)
         step[axis] = 1
@@ -87,6 +90,8 @@ def marching_cubes(volume: torch.Tensor, origin, spacing,
         ox, oy, oz = (int(v) for v in _CORNER_OFF[c])
         case = case + (inside[ox:X - 1 + ox, oy:Y - 1 + oy,
                               oz:Z - 1 + oz].long() << c)
+    # the tables' copies, the cubes' nonzero, the triangles' selection
+    trace.count("host_syncs", 6)
     n_tris = torch.as_tensor(N_TRIS, device=dev).long()[case]
     cubes = torch.nonzero(n_tris > 0)                          # (A, 3)
     ccase = case[cubes[:, 0], cubes[:, 1], cubes[:, 2]]

@@ -20,29 +20,17 @@ can hold them: ``pixel_box`` (the only pixels an entry tests),
 the winner).
 
 Dispatch rule: a CPU tensor goes to the plain PyTorch version; a CUDA tensor
-goes to the kernel or raises.  ``launches`` counts kernel launches only.
+goes to the kernel or raises.  Each kernel launch (and nothing else) adds
+one to the host counter ``mesh_raster_launches`` of ``utils/trace.py``.
 """
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
 
 import torch
 
+from ..utils import trace
 from ._cuda_build import CudaLibrary, check_launch
-
-
-@dataclass
-class LaunchCounts:
-    """Kernel launches since the last reset (plain-version calls are not
-    counted)."""
-    mesh_raster_launches: int = 0
-
-    def reset(self):
-        self.mesh_raster_launches = 0
-
-
-launches = LaunchCounts()
 
 _MAX_PAIRS = 1 << 22   # (entry, pixel) pairs per chunk of the plain version
 MAX_SIDE = 8192        # image side up to which BOX_SLACK covers the box's
@@ -271,5 +259,5 @@ def mesh_fragments(rec, entries, cell_ids, starts, counts, cs: int, ncx: int,
     fn, args, out = raster_call(rec, entries, cell_ids, starts, counts, cs,
                                 ncx, H, W)
     check_launch(fn(*args), "mesh_fragments")
-    launches.mesh_raster_launches += 1
+    trace.count("mesh_raster_launches")
     return out[:3]

@@ -10,6 +10,9 @@ writes the mask, and the backward kernel writes each entry's (d col, d row)
 at its entry id, whose <= 4 slots per point torch sums in a fixed order.
 There is no candidate capacity: the port drops no splat, so it equals the
 JAX mask wherever the JAX binning drops nothing (its ``stats[0] == 0``).
+The binning reads four values on the host (the entry count, bincount's
+least and largest cell, the active cells), each counted in ``host_syncs``
+(``utils/trace.py``).
 
 Mesh fragments (torch port of ``rasterize_mesh``): the nearest face per
 pixel with its perspective-correct barycentrics and depth, non-
@@ -25,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..render.camera import Camera, transform_points_screen
+from ..utils import trace
 from .binning import bbox_cell_entries
 from . import mesh_kernels as MK
 from . import splat_kernels as SK
@@ -57,6 +61,7 @@ def cell_bins(bb_min_x, bb_min_y, bb_max_x, bb_max_y, ok, H: int, W: int,
     cells, ids = bbox_cell_entries(bb_min_x, bb_min_y, bb_max_x, bb_max_y,
                                    ok, cs, ncx, ncy)
     order = torch.argsort(cells * (4 * bb_min_x.shape[0]) + ids)
+    trace.count("host_syncs", 3)     # bincount's min and max, the nonzero
     per_cell = torch.bincount(cells, minlength=ncy * ncx)
     cell_ids = torch.nonzero(per_cell).squeeze(1)
     counts = per_cell[cell_ids]
@@ -93,19 +98,12 @@ class _SplatMask(torch.autograd.Function):
             mask = SK.fwd(col, row, bins.entries, bins.ecell, bins.cell_ids,
                           bins.starts, bins.counts, cs, bins.ncx, H, W,
                           r2_inv)
-            occ = bins.counts.max() if bins.counts.numel() else \
-                torch.zeros((), dtype=torch.int32, device=col.device)
-            stats = torch.stack([occ.to(torch.int64),
-                                 torch.full((), bins.cell_ids.numel(),
-                                            dtype=torch.int64,
-                                            device=col.device)])
         ctx.save_for_backward(col, row, mask, bins.entries, bins.ecell)
         ctx.geom = (cs, bins.ncx, r2_inv)
-        ctx.mark_non_differentiable(stats)
-        return mask, stats
+        return mask
 
     @staticmethod
-    def backward(ctx, g, _g_stats):
+    def backward(ctx, g):
         col, row, mask, entries, ecell = ctx.saved_tensors
         cs, ncx, r2_inv = ctx.geom
         n = col.shape[0]
@@ -127,20 +125,17 @@ def splat_cell_size(r_pix: float, footprint: int) -> int:
 
 
 def splat_mask(cam: Camera, points: torch.Tensor, point_valid: torch.Tensor,
-               radius_ndc: float, footprint: int = 9,
-               return_stats: bool = False):
+               radius_ndc: float, footprint: int = 9):
     """Soft mask (H, W) in [0, 1] from world-space points (N, 3).
 
     Differentiable w.r.t. the points and the camera (through the screen
-    transform).  return_stats=True also returns a (2,) int64 tensor
-    [max cell occupancy, active cell count]."""
+    transform)."""
     r_pix = radius_ndc * cam.W / 2.0
     cs = splat_cell_size(r_pix, footprint)
     screen = transform_points_screen(cam, points)
     col, row, z = screen[:, 0], screen[:, 1], screen[:, 2]
-    mask, stats = _SplatMask.apply(col, row, z.detach(), point_valid,
-                                   float(r_pix), cam.H, cam.W, cs)
-    return (mask, stats) if return_stats else mask
+    return _SplatMask.apply(col, row, z.detach(), point_valid, float(r_pix),
+                            cam.H, cam.W, cs)
 
 
 # ---------------------------------------------------------------------------

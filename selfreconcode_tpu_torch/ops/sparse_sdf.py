@@ -17,10 +17,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace
+
 
 def grid_world_coords(res_full: Tuple[int, int, int], b_min, b_max,
                       device="cpu"):
     """(spacing (3,), origin (3,)) float32 for the finest grid."""
+    trace.count("host_syncs", 3)     # the three copies below
     b_min = torch.tensor(np.array(b_min, np.float32), device=device)
     b_max = torch.tensor(np.array(b_max, np.float32), device=device)
     r = torch.tensor(res_full, dtype=torch.float32, device=device)
@@ -82,6 +85,8 @@ def sparse_sdf_grid(query_fn: Callable[[torch.Tensor], torch.Tensor],
 
         def query(mask):
             """Query the voxels of `mask`; returns their sign flips."""
+            # the nonzero, the index_put of True and the flips' selection
+            trace.count("host_syncs", 6)
             ijk = torch.nonzero(mask)
             vals = query_fn(origin + ijk.float() * stride * spacing)
             i, j, k = ijk.unbind(1)
@@ -95,6 +100,7 @@ def sparse_sdf_grid(query_fn: Callable[[torch.Tensor], torch.Tensor],
 
         conf = query(_boundary_mask(vol, balance, dilate) & ~queried)
         for _ in range(conflict_iters):
+            trace.count("host_syncs")
             if not bool(conf.any()):
                 break
             conf = query(_dilate3(conf) & ~queried)

@@ -26,38 +26,24 @@ entry id.  The plain versions compute the same functions in the same
 summation grouping.
 
 Dispatch rule: a CPU tensor goes to the plain PyTorch version; a CUDA tensor
-goes to the kernel or raises.  ``launches`` counts kernel launches only.
+goes to the kernel or raises.  Each kernel launch (and nothing else) adds
+one to a host counter of ``utils/trace.py``: ``splat_fwd_launches``,
+``splat_bwd_launches``, and for the dense forms ``splat_fwd_cells_launches``
+and ``splat_bwd_cells_launches``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
 
 import torch
 
+from ..utils import trace
 from ._cuda_build import CudaLibrary, check_launch
 
 BIG = 3.0e38     # the dense forms' empty-slot sentinel (col >= BIG / 2)
 CHUNK = 32       # entries per chunk; splat.cu's kChunk, checked at load
 W_MAX = 1.0 - 1e-5
-
-
-@dataclass
-class LaunchCounts:
-    """Kernel launches since the last reset (plain-version calls are not
-    counted)."""
-    splat_fwd_launches: int = 0
-    splat_bwd_launches: int = 0
-    splat_fwd_cells_launches: int = 0
-    splat_bwd_cells_launches: int = 0
-
-    def reset(self):
-        for name in self.__dataclass_fields__:
-            setattr(self, name, 0)
-
-
-launches = LaunchCounts()
 
 
 def _bind(lib):
@@ -240,15 +226,11 @@ def _require_cuda(t, what: str):
         raise ValueError(f"{what}: unsupported device {t.device}")
 
 
-def _count(counter: str):
-    setattr(launches, counter, getattr(launches, counter) + 1)
-
-
 def fwd(col, row, entries, ecell, cell_ids, starts, counts, cs, ncx, out_h,
         out_w, r2_inv, to_mask=True, counter="splat_fwd_launches"):
     """The forward on checked inputs.  CPU -> plain version; CUDA -> the
-    kernel (or an exception), counted in ``launches.<counter>``; with no
-    entry nothing is launched."""
+    kernel (or an exception), counted in the host counter `counter`; with
+    no entry nothing is launched."""
     if col.device.type == "cpu":
         return splat_fwd_plain(col, row, entries, ecell, cell_ids, starts,
                                counts, cs, ncx, out_h, out_w, r2_inv, to_mask)
@@ -259,7 +241,7 @@ def fwd(col, row, entries, ecell, cell_ids, starts, counts, cs, ncx, out_h,
     if entries.shape[0] == 0:
         return out
     check_launch(fn(*args), "splat_fwd")
-    _count(counter)
+    trace.count(counter)
     del partial      # freed only now: the launch that uses it is queued
     return out
 
@@ -267,7 +249,7 @@ def fwd(col, row, entries, ecell, cell_ids, starts, counts, cs, ncx, out_h,
 def bwd(col, row, entries, ecell, g_img, mask_img, cs, ncx, r2_inv,
         n_slots, counter="splat_bwd_launches"):
     """The backward on checked inputs: per-slot gradients.  A launch is
-    counted in ``launches.<counter>``."""
+    counted in the host counter `counter`."""
     if col.device.type == "cpu":
         return splat_bwd_plain(col, row, entries, ecell, g_img, mask_img, cs,
                                ncx, r2_inv, n_slots)
@@ -277,7 +259,7 @@ def bwd(col, row, entries, ecell, g_img, mask_img, cs, ncx, r2_inv,
     if entries.shape[0] == 0:
         return g
     check_launch(fn(*args), "splat_bwd")
-    _count(counter)
+    trace.count(counter)
     return g
 
 

@@ -11,6 +11,8 @@ import math as _pymath
 import numpy as np
 import torch
 
+from . import trace
+
 
 def quat2mat(quat: torch.Tensor) -> torch.Tensor:
     """Quaternion (w,x,y,z), (..., 4) -> rotation matrices (..., 3, 3);
@@ -159,6 +161,7 @@ def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-12):
 def make_homo(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(...,3,3),(...,3) -> (...,4,4) rigid transform."""
     top = torch.cat([R, t[..., :, None]], dim=-1)
+    trace.count("host_syncs")
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
                           device=R.device).expand(R.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)

@@ -13,6 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import trace
+
 
 def face_normals(verts: torch.Tensor, faces: torch.Tensor, eps: float = 1e-6):
     """Unit face normals (F, 3)."""
@@ -46,6 +48,9 @@ def build_edge_topology(faces: torch.Tensor) -> EdgeTopology:
     step's losses index nothing by a mask."""
     f = faces.long()
     F = f.shape[0]
+    # the three list-index copies, hi.max(), the nonzero, the end's copy,
+    # the interior edges' selection
+    trace.count("host_syncs", 7)
     e = torch.cat([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]])
     fid = torch.arange(F, device=f.device).repeat(3)
     lo, hi = e.amin(1), e.amax(1)

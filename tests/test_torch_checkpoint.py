@@ -237,6 +237,7 @@ def test_port_step_matches_jax_next_step(trained, monkeypatch):
         np.testing.assert_allclose(info[k], ji[k], rtol=1e-4, atol=1e-7,
                                    err_msg=k)
     assert ji["inv_ok"] == P and ji["splat_overflow"] == 0
+    assert not {"splat_overflow", "frag_overflow"} & set(info)
     assert abs(info["ray_converged"] - ji["ray_converged"]) <= 0.01 * P
     nv = trained["nv"]
     np.testing.assert_allclose(tr.tmp.verts.numpy(),

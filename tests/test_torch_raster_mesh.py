@@ -29,6 +29,7 @@ from selfreconcode_tpu_torch.ops.binning import bbox_cell_entries
 from selfreconcode_tpu_torch.ops.rasterize import (Fragments, cell_bins,
                                                    mesh_bins, rasterize_mesh)
 from selfreconcode_tpu_torch.render import camera as TCAM
+from selfreconcode_tpu_torch.utils import trace
 from selfreconcode_tpu_torch.render.shading import (phong_shade,
                                                     render_mesh_phong)
 
@@ -72,6 +73,11 @@ def cameras(H, W):
     princ = np.array([W / 2 + 0.3, H / 2 - 0.2], np.float32)
     return (JCAM.make_camera(focal, princ, QUAT, T, H, W),
             TCAM.make_camera(focal, princ, QUAT, T, H, W))
+
+
+def launches():
+    """Mesh-kernel launches counted since the last read (which clears)."""
+    return trace.read_and_clear()["counters"].get("mesh_raster_launches", 0)
 
 
 def port_frags(tcam, v, f, footprint):
@@ -394,9 +400,9 @@ def test_keyed_walk_matches_plain_bit_for_bit(dup):
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     v, f = uv_sphere(12)
     _, tcam = cameras(96, 96)
-    before = MK.launches.mesh_raster_launches
+    trace.read_and_clear()
     mine = port_frags(tcam, v, f, 8)
-    assert MK.launches.mesh_raster_launches == before
+    assert launches() == 0
     assert mine.pix_to_face.dtype == torch.int32
     assert mine.zbuf.shape == (96, 96) and mine.bary.shape == (96, 96, 3)
     with pytest.raises(ValueError):
@@ -478,9 +484,9 @@ def test_mesh_kernel_matches_plain_on_the_card():
                        torch.tensor(f, device="cuda"), 8)
     args = (rec, b.entries, b.cell_ids, b.starts, b.counts, b.cs, b.ncx, 96,
             96)
-    n0 = MK.launches.mesh_raster_launches
+    trace.read_and_clear()
     got = MK.mesh_fragments(*args)
-    assert MK.launches.mesh_raster_launches == n0 + 1
+    assert launches() == 1
     for a, e in zip(got, MK.mesh_fragments_plain(*args)):
         torch.testing.assert_close(a, e, rtol=0, atol=0)
     # the faces twice over: every hit an exact tie, won by the first copy,
@@ -495,12 +501,12 @@ def test_mesh_kernel_matches_plain_on_the_card():
     for a, e in zip(got2, MK.mesh_fragments(*args2)):
         assert torch.equal(a, e)
     assert int(got2[1].max()) < len(f)
-    assert MK.launches.mesh_raster_launches == n0 + 3
+    assert launches() == 2
     # a mesh behind the camera has no active cell: nothing is launched
     rec0, b0 = mesh_bins(cam, torch.tensor(v - np.float32([0, 0, 5]),
                                            device="cuda"),
                          torch.tensor(f, device="cuda"), 8)
     z0, f0, _ = MK.mesh_fragments(rec0, b0.entries, b0.cell_ids, b0.starts,
                                   b0.counts, b0.cs, b0.ncx, 96, 96)
-    assert MK.launches.mesh_raster_launches == n0 + 1
+    assert launches() == 0
     assert (f0 == -1).all() and torch.isinf(z0).all()

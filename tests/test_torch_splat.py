@@ -18,7 +18,6 @@ than two chunks and runs that cross chunk edges), the mask formed inside
 the forward, the cotangent -g * (1 - mask) inside the backward, and each
 entry's gradient written at its entry id.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +30,7 @@ from selfreconcode_tpu.ops.rasterize import splat_mask as jsplat
 from selfreconcode_tpu.render.camera import Camera as JCam
 from selfreconcode_tpu_torch.ops import splat_kernels as SK
 from selfreconcode_tpu_torch.ops.rasterize import splat_bins, splat_mask
+from selfreconcode_tpu_torch.utils import trace
 from selfreconcode_tpu_torch.render.camera import (Camera,
                                                    transform_points_screen)
 
@@ -106,14 +106,13 @@ def test_splat_mask_and_grads_match_jax(case):
     cam_leaves = [torch.tensor(a, requires_grad=True) for a in (FOCAL, PRINC, T)]
     cam = Camera(cam_leaves[0], cam_leaves[1], torch.tensor(R), cam_leaves[2],
                  H, W)
-    mask, stats = splat_mask(cam, tp, torch.tensor(valid), radius,
-                             return_stats=True)
+    mask = splat_mask(cam, tp, torch.tensor(valid), radius)
     (mask * torch.tensor(target)).sum().backward()
-    occupancy = int(stats[0])
+    _, _, b = _bins_for(pts, r_pix, "cpu", valid)
+    occupancy = int(b.counts.max())
     if case == "dense":
         assert occupancy >= 300
     if case == "chunks":
-        _, _, b = _bins_for(pts, r_pix, "cpu", valid)
         assert occupancy > 2 * SK.CHUNK
         ends = b.starts + b.counts - 1
         assert ((b.starts // SK.CHUNK != ends // SK.CHUNK)
@@ -140,6 +139,12 @@ def test_splat_mask_and_grads_match_jax(case):
                                    atol=1e-4 * np.abs(ref).max())
 
 
+def launches():
+    """The kernel launches counted since the last read (which clears)."""
+    return {k: v for k, v in trace.read_and_clear()["counters"].items()
+            if k.endswith("_launches")}
+
+
 def _bins_for(pts, r_pix, device, valid=None):
     cam = Camera(*(torch.tensor(a, device=device) for a in
                    (FOCAL, PRINC, R, T)), H, W)
@@ -159,7 +164,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     pts, _, r_pix = dense_cloud(np.random.default_rng(3))
     col, row, b = _bins_for(pts, r_pix, "cpu")
     args = _fwd_args(col, row, b, r_pix)
-    before = dataclasses.astuple(SK.launches)
+    trace.read_and_clear()
     mask = SK.splat_fwd(*args)
     torch.testing.assert_close(mask, SK.splat_fwd_plain(*args))
     assert torch.equal(SK.fwd(*args), mask)
@@ -172,7 +177,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     pts_d = torch.tensor(dense_slots(np.random.default_rng(3))[0])
     SK.splat_bwd_cells(pts_d, SK.splat_fwd_cells(pts_d, 8, 8, 2.5), 8, 8,
                        2.5)
-    assert dataclasses.astuple(SK.launches) == before
+    assert launches() == {}
     with pytest.raises(TypeError):
         SK.splat_fwd(col.double(), row, *args[2:])
 
@@ -279,9 +284,9 @@ def test_kernels_match_plain_on_the_card():
     pts, valid, r_pix = chunk_cloud(np.random.default_rng(4))
     col, row, b = _bins_for(pts, r_pix, "cuda", valid)
     args = _fwd_args(col, row, b, r_pix)
-    n0 = SK.launches.splat_fwd_launches
+    trace.read_and_clear()
     mask = SK.splat_fwd(*args)
-    assert SK.launches.splat_fwd_launches == n0 + 1
+    assert launches() == {"splat_fwd_launches": 1}
     torch.testing.assert_close(mask, SK.splat_fwd_plain(*args), rtol=0,
                                atol=1e-6)
     assert torch.equal(mask, SK.splat_fwd(*args))          # bit-deterministic
@@ -297,15 +302,12 @@ def test_kernels_match_plain_on_the_card():
                                atol=1e-4 * float(gp.abs().max()))
     assert torch.equal(g, SK.splat_bwd(*bwd))
     # the unchecked launchers count where they launch, whoever calls them
-    n0 = (SK.launches.splat_fwd_launches, SK.launches.splat_bwd_launches)
+    trace.read_and_clear()
     SK.fwd(*args)
     SK.bwd(*bwd)
-    assert (SK.launches.splat_fwd_launches,
-            SK.launches.splat_bwd_launches) == (n0[0] + 1, n0[1] + 1)
+    assert launches() == {"splat_fwd_launches": 1, "splat_bwd_launches": 1}
     pts_d, _ = dense_slots(np.random.default_rng(5))
     pts_d = torch.tensor(pts_d, device="cuda")
-    d0 = (SK.launches.splat_fwd_cells_launches,
-          SK.launches.splat_bwd_cells_launches)
     torch.testing.assert_close(SK.splat_fwd_cells(pts_d, 8, 8, 2.5),
                                SK.splat_fwd_cells_plain(pts_d, 8, 8, 2.5),
                                rtol=1e-4, atol=1e-4)
@@ -313,15 +315,13 @@ def test_kernels_match_plain_on_the_card():
     gd = SK.splat_bwd_cells_plain(pts_d, cot_d, 8, 8, 2.5)
     torch.testing.assert_close(SK.splat_bwd_cells(pts_d, cot_d, 8, 8, 2.5),
                                gd, rtol=0, atol=1e-4 * float(gd.abs().max()))
-    assert (SK.launches.splat_fwd_cells_launches,
-            SK.launches.splat_bwd_cells_launches) == (d0[0] + 1, d0[1] + 1)
+    assert launches() == {"splat_fwd_cells_launches": 1,
+                          "splat_bwd_cells_launches": 1}
     # no entry: the wrappers launch nothing and count nothing
     none = torch.zeros(0, dtype=torch.int32, device="cuda")
-    n0 = (SK.launches.splat_fwd_launches, SK.launches.splat_bwd_launches)
     m0 = SK.splat_fwd(col, row, none, none, none, none, none, 8, b.ncx, H, W,
                       args[-1])
     g0 = SK.splat_bwd(col, row, none, none, g_img, m0, 8, b.ncx, args[-1],
                       4 * col.shape[0])
     assert (m0 == 0).all() and (g0 == 0).all()
-    assert (SK.launches.splat_fwd_launches,
-            SK.launches.splat_bwd_launches) == n0
+    assert launches() == {}

@@ -239,7 +239,8 @@ def assert_losses_match(r):
                                    err_msg=k)
     assert ji["inv_ok"] == P
     assert abs(ti["ray_converged"] - ji["ray_converged"]) <= 0.01 * P
-    assert ti["splat_overflow"] == 0 and ji["splat_overflow"] == 0
+    # the port drops no splat: it has no overflow to report
+    assert "splat_overflow" not in ti and ji["splat_overflow"] == 0
 
 
 def test_variant_steps_match(variant_results):

@@ -39,6 +39,7 @@ from selfreconcode_tpu_torch.ops import mesh_kernels as MK
 from selfreconcode_tpu_torch.ops import rasterize as TRA
 from selfreconcode_tpu_torch.render import camera as TCAM
 from selfreconcode_tpu_torch.texture import uv as T
+from selfreconcode_tpu_torch.utils import trace
 from test_torch_common import port_skinner
 
 OBJ = """
@@ -282,9 +283,10 @@ def test_bake_launches_the_mesh_kernel_once_per_frame():
     _, tcam = cameras(H, W)
     cam = TCAM.Camera(*(getattr(tcam, k).cuda() for k in
                         ("focal", "principal", "R", "T")), H, W)
-    MK.launches.reset()
+    trace.read_and_clear()
     T.bake_texture(cam, vlist, imgs, faces, faces, uvs, tex_size=64)
-    assert MK.launches.mesh_raster_launches == len(vlist)
+    assert trace.read_and_clear()["counters"]["mesh_raster_launches"] == \
+        len(vlist)
     fc, ft = torch.tensor(faces).long(), torch.tensor(faces).long().cuda()
     frags = []
     for v in vlist:
