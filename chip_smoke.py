@@ -1125,9 +1125,13 @@ def dp_path(workdir, paths):
                 raise AssertionError(f"{tag}: main returned {tr}, launches "
                                      f"in the calling process {launched}")
             launched = rec["launches"]
-        elif launched != rec["launches"]:
-            raise AssertionError(f"{tag}: launches {launched} != the "
-                                 f"steps' {rec['launches']}")
+        elif any(launched.values()):
+            # the recorder reads the counters after each step, which
+            # clears them: what is left launched outside the steps
+            raise AssertionError(f"{tag}: launches outside the recorded "
+                                 f"steps {launched}")
+        else:
+            launched = rec["launches"]
         check_steps(rec["history"], 6144, 4, tag)
         exact_launches(tag, launched, splat_fwd=12, splat_bwd=12,
                        mesh_raster=0)

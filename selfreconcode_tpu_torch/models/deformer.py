@@ -5,7 +5,8 @@ from __future__ import annotations
 
 import torch
 
-from .skinner import Skinner, frame_rows, skinner_apply
+from .skinner import (Skinner, frame_rows, skinner_apply,
+                      skinner_apply_transforms)
 from .translator import TranslatorNet
 
 
@@ -15,6 +16,15 @@ def deformer_apply(translator: TranslatorNet, skinner: Skinner, pts,
     -> (deformed (N,3), translator offset (N,3))."""
     translated, offset = translator(pts, frame_rows(dcond, batch_inds), ratio)
     return skinner_apply(skinner, translated, batch_inds, poses, trans), offset
+
+
+def deformer_apply_transforms(translator: TranslatorNet, skinner: Skinner,
+                              pts, batch_inds, dcond, A, trans, ratio=None):
+    """``deformer_apply`` from the poses' FK transforms A (B,24,4,4) of
+    ``fk_transforms``."""
+    translated, offset = translator(pts, frame_rows(dcond, batch_inds), ratio)
+    return (skinner_apply_transforms(skinner, A, translated, batch_inds,
+                                     trans), offset)
 
 
 def point_jacobian(fn, pts: torch.Tensor, create_graph: bool = True):

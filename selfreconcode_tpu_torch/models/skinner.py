@@ -69,8 +69,15 @@ def frame_rows(x: torch.Tensor, batch_inds: torch.Tensor) -> torch.Tensor:
 def skinner_apply(skinner: Skinner, pts, batch_inds, poses, trans):
     """pts (N,3), batch_inds (N,) frame index, poses (B,24,3), trans (B,3)
     -> deformed (N,3)."""
-    B = poses.shape[0]
-    A, _ = fk_transforms(skinner, poses)
+    return skinner_apply_transforms(skinner, fk_transforms(skinner, poses)[0],
+                                    pts, batch_inds, trans)
+
+
+def skinner_apply_transforms(skinner: Skinner, A, pts, batch_inds, trans):
+    """``skinner_apply`` from the poses' FK transforms A (B,24,4,4) of
+    ``fk_transforms``, so that a caller skinning many point sets at the
+    same poses runs the FK (and its host copies) once."""
+    B = A.shape[0]
     w = sample_skin_weights(skinner, pts)                          # (N,24)
     onehot = torch.nn.functional.one_hot(batch_inds, B).to(pts.dtype)
     wb = (w[:, :, None] * onehot[:, None, :]).reshape(pts.shape[0], 24 * B)

@@ -22,14 +22,19 @@ def annealing_band_weights(multires: int, ratio, device=None) -> torch.Tensor:
 def positional_encoding(x: torch.Tensor, multires: int,
                         ratio=None) -> torch.Tensor:
     """x (..., D) -> (..., D*(1+2*multires)): [x, sin(2^0 x), cos(2^0 x), ...],
-    each band scaled by its annealing weight when ratio is given."""
+    each band scaled by its annealing weight when ratio is given.  ratio is
+    a number, or the band weights themselves as a (multires,) tensor
+    (``annealing_band_weights(multires, ratio)``): a CUDA graph replayed
+    with changing ratios reads them from a device buffer, where a number
+    would be fixed at capture."""
     if multires <= 0:
         return x
     freqs = 2.0 ** torch.arange(multires, dtype=x.dtype, device=x.device)
     xf = x[..., None, :] * freqs[:, None]                  # (..., L, D)
     sin, cos = torch.sin(xf), torch.cos(xf)
     if ratio is not None:
-        w = annealing_band_weights(multires, ratio, x.device)[:, None]
+        w = (ratio if torch.is_tensor(ratio) and ratio.dim() == 1
+             else annealing_band_weights(multires, ratio, x.device))[:, None]
         sin, cos = sin * w, cos * w
     feats = torch.stack([sin, cos], dim=-2)                # (..., L, 2, D)
     feats = feats.reshape(x.shape[:-1] + (2 * multires * x.shape[-1],))

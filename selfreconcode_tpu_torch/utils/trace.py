@@ -16,6 +16,11 @@ step (the id of its outermost span, ``train_step`` in a step).  With
 tracing off and no profiler running a span stores nothing and enters no
 ``record_function``.
 
+Host counters: ``host_syncs`` (each host read of the device), the kernels'
+launch counts, and the surface solve's CUDA graph (``engine/surface.py``):
+``solve_graph_captures`` (a capture, at a solve of new shapes) and
+``solve_graph_replays`` (a solve that replayed a graph captured earlier).
+
 A device counter is a row of sums of device tensors, kept on the device and
 copied to the host by the training step's readback (``tolist``), so tracing
 adds no synchronize; a row still unread is copied by ``read_and_clear``.

@@ -17,10 +17,11 @@ from selfreconcode_tpu.models import smpl as JSMPL
 from selfreconcode_tpu.models import translator as JT
 from selfreconcode_tpu_torch.interop import params_from_jax
 from selfreconcode_tpu_torch.models import smpl as TSMPL
-from selfreconcode_tpu_torch.models.deformer import (deformer_apply,
-                                                     deformer_jacobian)
-from selfreconcode_tpu_torch.models.skinner import (build_skinner,
-                                                    skinner_apply_shared)
+from selfreconcode_tpu_torch.models.deformer import (
+    deformer_apply, deformer_apply_transforms, deformer_jacobian)
+from selfreconcode_tpu_torch.models.skinner import (
+    build_skinner, fk_transforms, skinner_apply, skinner_apply_shared,
+    skinner_apply_transforms)
 from selfreconcode_tpu_torch.models.translator import TranslatorNet
 
 RES = (17, 29, 9)
@@ -107,6 +108,26 @@ def test_deformer_apply_and_jacobian(setup):
     tj, tout = deformer_jacobian(tnet, tsk, *_args(d, "torch"), 0.8)
     close(jj, tj.detach())
     close(jout, tout.detach())
+
+
+@pytest.mark.parametrize("n_frames", [1, 3])
+def test_skinning_from_fk_transforms_is_skinner_apply(setup, n_frames):
+    """The solve skins from FK transforms computed once; every other caller
+    runs the FK inside skinner_apply: the same values, bit for bit."""
+    _, _, tsk, _, _, _, tnet, d = setup
+    pts, binds, dcond, poses, trans = _args(d, "torch")
+    binds = binds % n_frames
+    dcond, poses, trans = dcond[:n_frames], poses[:n_frames], trans[:n_frames]
+    A = fk_transforms(tsk, poses)[0]
+    posed = skinner_apply(tsk, pts, binds, poses, trans)
+    assert torch.equal(skinner_apply_transforms(tsk, A, pts, binds, trans),
+                       posed)
+    assert float((posed - pts).abs().max()) > 1e-2      # a real warp
+    for mine, ref in zip(
+            deformer_apply_transforms(tnet, tsk, pts, binds, dcond, A, trans,
+                                      0.8),
+            deformer_apply(tnet, tsk, pts, binds, dcond, poses, trans, 0.8)):
+        assert torch.equal(mine, ref)
 
 
 def test_double_backward_through_jacobian(setup):

@@ -17,6 +17,8 @@ from selfreconcode_tpu_torch.interop import params_from_jax
 from selfreconcode_tpu_torch.models.render import RenderNet
 from selfreconcode_tpu_torch.models.sdf import SDFNet, sdf_grad
 from selfreconcode_tpu_torch.models.translator import TranslatorNet
+from selfreconcode_tpu_torch.utils.pe import (annealing_band_weights,
+                                              positional_encoding)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -105,6 +107,18 @@ def test_translator(ratio):
     to, toff = net(torch.tensor(x), torch.tensor(c), ratio)
     close(jo, to.detach())
     close(joff, toff.detach(), atol=1e-7)
+
+
+@pytest.mark.parametrize("ratio", [0.5, 0.73, 1.4])
+def test_positional_encoding_takes_band_weights(ratio):
+    """The band weights as a tensor (a CUDA graph's input) give the float
+    ratio's encoding, annealed (0.5, 0.73) or saturated (1.4)."""
+    w = annealing_band_weights(6, ratio)
+    assert bool((w < 1.0).any()) == (ratio < 1.0)
+    x = torch.tensor(np.random.default_rng(5).normal(0, 0.5, (64, 3)).astype(
+        np.float32))
+    assert torch.equal(positional_encoding(x, 6, w),
+                       positional_encoding(x, 6, ratio))
 
 
 def test_render_net():

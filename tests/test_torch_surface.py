@@ -29,13 +29,17 @@ from selfreconcode_tpu.models import sdf as JSDF
 from selfreconcode_tpu.models import skinner as JSK
 from selfreconcode_tpu.models import smpl as JSMPL
 from selfreconcode_tpu.models import translator as JT
+from selfreconcode_tpu_torch.engine import surface as SURF
 from selfreconcode_tpu_torch.engine.surface import (
     SurfaceConfig, optimize_surface_points, surface_points)
 from selfreconcode_tpu_torch.interop import params_from_jax
-from selfreconcode_tpu_torch.models.deformer import deformer_apply
-from selfreconcode_tpu_torch.models.sdf import SDFNet
+from selfreconcode_tpu_torch.models.deformer import (deformer_apply,
+                                                     deformer_jacobian)
+from selfreconcode_tpu_torch.models.sdf import SDFNet, sdf_value_and_grad
 from selfreconcode_tpu_torch.models.skinner import Skinner
 from selfreconcode_tpu_torch.models.translator import TranslatorNet
+from selfreconcode_tpu_torch.utils import trace
+from selfreconcode_tpu_torch.utils.math import cross_matrix, inv3x3
 
 WRT = ("dcond", "poses", "trans", "rays", "cam_c")
 
@@ -168,6 +172,74 @@ def test_newton_points_and_converged_mask(setup):
     np.testing.assert_array_equal(done.numpy(), jdone)
     np.testing.assert_allclose(pts.detach().numpy()[jdone], jpts[jdone],
                                atol=1e-5)
+
+
+def newton_with_fk_per_evaluation(nets, cfg, ratio_sdf, ratio_def, init,
+                                  binds, dcond, poses, trans, rays, cam_c):
+    """The Newton loop as it was before its FK left the loop: each
+    evaluation runs the FK from the poses and the encodings take the
+    ratios as numbers.  (pts, done, B, the converged masks at each test)."""
+    sdf_net, translator, skinner = nets
+
+    def evaluate(p):
+        sdf, grad_p, _ = sdf_value_and_grad(sdf_net, p, ratio_sdf,
+                                            create_graph=False)
+        jac, d = deformer_jacobian(translator, skinner, p, binds, dcond,
+                                   poses, trans, ratio_def,
+                                   create_graph=False)
+        v_cross = cross_matrix(rays)
+        direct = d.detach() - cam_c[None, :]
+        Fc = torch.einsum("nij,nj->ni", v_cross, direct)
+        sin_ang = (torch.linalg.norm(Fc, dim=-1)
+                   / torch.linalg.norm(direct, dim=-1).clamp_min(1e-12)
+                   / torch.linalg.norm(rays, dim=-1).clamp_min(1e-12))
+        F = torch.cat([sdf.detach()[:, None], Fc], dim=1)
+        B = torch.cat([grad_p[:, None, :], torch.einsum(
+            "nij,njk->nik", v_cross, jac.detach())], dim=1)
+        ang = torch.arcsin(sin_ang.clamp(0.0, 1.0)) * 180.0 / np.pi
+        return F, B, ((sdf.detach().abs() < cfg.dthreshold)
+                      & (ang < cfg.athreshold_deg))
+
+    pts = init
+    done = torch.zeros(pts.shape[0], dtype=torch.bool)
+    eye = torch.eye(3)
+    dones = []
+    for _ in range(cfg.n_iters):
+        F, B, now = evaluate(pts)
+        done = done | now
+        dones.append(done)
+        inv, ok = inv3x3(torch.einsum("nki,nkj->nij", B, B) + 1e-9 * eye,
+                         det_eps=1e-12)
+        dp = -torch.einsum("nij,nkj,nk->ni", inv, B, F)
+        nrm = torch.linalg.norm(dp, dim=-1, keepdim=True)
+        dp = dp * torch.clamp(cfg.step_clip / nrm.clamp_min(1e-20), max=1.0)
+        pts = pts + torch.where((done | ~ok)[:, None], torch.zeros_like(dp),
+                                dp)
+    F, B, now = evaluate(pts)
+    return pts, done | now, B, dones + [done | now]
+
+
+@pytest.mark.parametrize("ratios", [(1.0, 1.0), (0.5, 0.73), (None, None)])
+def test_newton_with_the_fk_hoisted_is_the_same_loop(setup, ratios):
+    """The eager loop with its FK run once and the ratios as band weights
+    equals the loop that ran the FK at each evaluation, bit for bit, in
+    points, masks, B and every test's mask; on the CPU no graph is made."""
+    *_, sdf, tnet, skinner, d = setup
+    nets = (sdf, tnet, skinner)
+    cfg = SurfaceConfig(n_iters=10)
+    lv = {k: torch.tensor(d[k]) for k in WRT}
+    init, binds = torch.tensor(d["init"]), torch.tensor(d["binds"]).long()
+    trace.read_and_clear()
+    pts, done, B, dones = SURF._newton(
+        nets, cfg, *ratios, SURF._detached(skinner, **lv), init, binds)
+    ref = newton_with_fk_per_evaluation(nets, cfg, *ratios, init, binds,
+                                        **lv)
+    assert done.any() and not dones[0].all()      # rays froze in turn
+    for mine, want in zip((pts, done, B, *dones), ref[:3] + tuple(ref[3])):
+        assert torch.equal(mine, want)
+    assert dones.shape == (cfg.n_iters + 1, init.shape[0])
+    assert not {"solve_graph_captures", "solve_graph_replays"} & set(
+        trace.read_and_clear()["counters"])
 
 
 def check_ift_gradients(setup, newton, init):

@@ -237,6 +237,11 @@ def test_trace_report_line():
     assert line == ("trace epoch 3 (2 steps; ms per step, duration/self): "
                     "train_step 1100.0/150.0, step.outer 400.0/150.0; "
                     "host_syncs 4.5 per step; solve_converged 2.0 3.0")
+    graphs = {"host_syncs": 9, "solve_graph_captures": 1,
+              "solve_graph_replays": 1}
+    assert trace_report(3, {"spans": spans, "counters": graphs,
+                            "device": {}}).endswith(
+        "host_syncs 4.5 per step; solve graph captures 1, replays 1")
     assert trace_report(0, {"spans": [], "counters": {}, "device": {}}) == \
         "trace epoch 0: no step"
 
