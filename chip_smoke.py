@@ -1069,17 +1069,16 @@ class StepRecorder:
 
 def allreduce_bytes(trainer):
     """The float32 entries one data-parallel step all-reduces: every
-    gradient of the nets and the bank, a has-gradient flag per leaf, and
-    each info value with its presence flag."""
+    gradient of the nets and the bank, and each info value (the step
+    function's first step adds a has-gradient flag per leaf and a presence
+    flag per info value)."""
     from selfreconcode_tpu_torch.engine.trainer import STEP_INFO_KEYS
     nets = {name: sum(p.numel() for p in net.parameters()) for name, net in
             (("SDF", trainer.nets.sdf),
              ("translator", trainer.nets.translator),
              ("colour", trainer.nets.netRender))}
     bank = sum(v.numel() for v in trainer.bank.values())
-    leaves = sum(1 for g in trainer.optimizer.param_groups
-                 for _ in g["params"])
-    entries = sum(nets.values()) + bank + leaves + 2 * len(STEP_INFO_KEYS)
+    entries = sum(nets.values()) + bank + len(STEP_INFO_KEYS)
     return nets, bank, 4 * entries
 
 
@@ -1144,8 +1143,7 @@ def dp_path(workdir, paths):
         if tag == "plain":
             nets, bank, nbytes = allreduce_bytes(tr)
             print(f"  one data-parallel step all-reduces {nbytes} bytes: "
-                  f"parameters {nets} (float32), bank {bank}, flags and "
-                  f"info", flush=True)
+                  f"parameters {nets} (float32), bank {bank} and info", flush=True)
         out[tag] = rec["history"]
 
     def differing(a, b):

@@ -19,6 +19,7 @@ import torch
 
 from ..models.deformer import deformer_apply, deformer_jacobian
 from ..models.sdf import sdf_value_and_grad
+from ..models.skinner import fk_transforms
 from ..ops.rasterize import rasterize_mesh
 from ..render.camera import Camera, cam_pos, make_camera, view_rays
 from ..render.shading import phong_shade
@@ -98,6 +99,7 @@ def make_infer_fn(trainer, footprint: int = 8, notcolor: bool = False,
     def color(bank, fid, cam, init_pts, valid):
         dev = init_pts.device
         poses, trans, dcond = frame(bank, fid)
+        A = fk_transforms(skinner, poses)[0]
         c = cam_pos(cam)
         pix = torch.arange(H * W, device=dev)
         rays = view_rays(cam, torch.stack([(pix % W).float(),
@@ -117,7 +119,7 @@ def make_infer_fn(trainer, footprint: int = 8, notcolor: bool = False,
             _, g, feat = sdf_value_and_grad(sdf_net, pts, 1.0,
                                             create_graph=False)
             jac, _ = deformer_jacobian(translator, skinner, pts, bflat, dcond,
-                                       poses, trans, 1.0, create_graph=False)
+                                       A, trans, 1.0, create_graph=False)
             jinv, ok = inv3x3(jac)
             crays = torch.where(ok[:, None],
                                 torch.einsum("nij,nj->ni", jinv, v), v)

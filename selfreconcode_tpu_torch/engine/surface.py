@@ -24,8 +24,9 @@ an autograd.Function:
 
 has p*'s value and exactly the IFT gradient.
 
-The solve runs the poses' forward kinematics once, before its loop (the
-poses carry no gradient there).  In training on the card (CUDA tensors,
+The solve skins at the poses' forward-kinematics transforms, which its
+caller computes once (``surface_points`` takes them; the solve reads them
+detached).  In training on the card (CUDA tensors,
 Newton, no early exit, grad enabled) the fixed-count Newton loop is one
 CUDA graph, captured at the first solve of its shapes and replayed at every
 later one (``_NewtonGraph``): the loop is thousands of small kernels that
@@ -40,8 +41,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..models.deformer import (deformer_apply, deformer_apply_transforms,
-                               point_jacobian)
+from ..models.deformer import deformer_apply_transforms, point_jacobian
 from ..models.sdf import sdf_value_and_grad
 from ..models.skinner import fk_transforms
 from ..utils import trace
@@ -119,13 +119,11 @@ def _point_losses(nets, pts, batch_inds, dcond, A, trans, rays, cam_c,
     return W1 * sdf.abs() + W2 * sin_ang, sdf, sin_ang
 
 
-def _detached(skinner, dcond, poses, trans, rays, cam_c):
-    """The solve's inputs, detached, with the poses' FK transforms A in
-    place of the poses: every iteration skins at the same A."""
-    return dict(dcond=dcond.detach(), A=fk_transforms(skinner,
-                                                       poses.detach())[0],
-                trans=trans.detach(), rays=rays.detach(),
-                cam_c=cam_c.detach())
+def _detached(dcond, A, trans, rays, cam_c):
+    """The solve's inputs, detached: every iteration skins at the poses'
+    FK transforms A."""
+    return dict(dcond=dcond.detach(), A=A.detach(), trans=trans.detach(),
+                rays=rays.detach(), cam_c=cam_c.detach())
 
 
 def _newton_loop(nets, cfg: SurfaceConfig, init_pts, batch_inds, **det):
@@ -274,13 +272,14 @@ def _cauchy(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, det, init_pts,
     return pts, dones[-1], dones
 
 
-def _solve(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond, poses,
-           trans, rays, cam_c, init_pts, batch_inds):
-    """The surface solve by the solver cfg names, without a gradient:
-    (pts, converged, B at pts or None, the detached inputs).  Records the
-    converged counts at each test (``solve_converged``)."""
+def _solve(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond, A, trans,
+           rays, cam_c, init_pts, batch_inds):
+    """The surface solve by the solver cfg names, without a gradient, at
+    the poses' FK transforms A: (pts, converged, B at pts or None, the
+    detached inputs).  Records the converged counts at each test
+    (``solve_converged``)."""
     with trace.span("step.outer.solve"):
-        det = _detached(nets[2], dcond, poses, trans, rays, cam_c)
+        det = _detached(dcond, A, trans, rays, cam_c)
         if cfg.newton:
             pts, done, B, dones = _newton(nets, cfg, ratio_sdf, ratio_def,
                                           det, init_pts, batch_inds)
@@ -297,15 +296,19 @@ def optimize_surface_points(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def,
                             batch_inds):
     """The surface solve alone, without a gradient, by the solver cfg
     names: (pts (N,3), converged mask (N,))."""
-    return _solve(nets, cfg, ratio_sdf, ratio_def, dcond, poses, trans, rays,
+    A = fk_transforms(nets[2], poses.detach())[0]
+    return _solve(nets, cfg, ratio_sdf, ratio_def, dcond, A, trans, rays,
                   cam_c, init_pts, batch_inds)[:2]
 
 
 def surface_points(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond,
-                   poses, trans, rays, cam_c, init_pts, batch_inds):
-    """nets = (sdf_net, translator, skinner).  Returns (pts (N,3) carrying
-    the IFT gradient, converged mask (N,))."""
-    pts, done, B, det = _solve(nets, cfg, ratio_sdf, ratio_def, dcond, poses,
+                   A, trans, rays, cam_c, init_pts, batch_inds):
+    """nets = (sdf_net, translator, skinner), A (B,24,4,4) the poses' FK
+    transforms of ``fk_transforms``: the solve reads A detached and the IFT
+    correction A itself, so a caller that skins more points at these poses
+    runs the FK once.  Returns (pts (N,3) carrying the IFT gradient,
+    converged mask (N,))."""
+    pts, done, B, det = _solve(nets, cfg, ratio_sdf, ratio_def, dcond, A,
                                trans, rays, cam_c, init_pts, batch_inds)
     if B is None:
         B = _constraint_and_B(nets, pts, batch_inds, ratio_sdf=ratio_sdf,
@@ -319,8 +322,9 @@ def surface_points(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond,
 
     sdf_net, translator, skinner = nets
     sdf_theta = sdf_net(pts, ratio_sdf)[0]
-    d_theta, _ = deformer_apply(translator, skinner, pts, batch_inds, dcond,
-                                poses, trans, ratio_def)
+    d_theta, _ = deformer_apply_transforms(translator, skinner, pts,
+                                           batch_inds, dcond, A, trans,
+                                           ratio_def)
     Fc_theta, _, _ = _constraint(sdf_theta, d_theta, rays, cam_c)
     F_theta = torch.cat([sdf_theta[:, None], Fc_theta], dim=1)
     F_theta = torch.where(keep[:, :, 0], F_theta, torch.zeros_like(F_theta))

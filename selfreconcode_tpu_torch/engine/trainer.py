@@ -36,11 +36,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.deformer import deformer_apply, deformer_jacobian, point_jacobian
+from ..models.deformer import (deformer_apply, deformer_apply_transforms,
+                               deformer_jacobian, point_jacobian)
 from ..models.render import RenderNet
 from ..models.sdf import SDFNet, sdf_grad, sdf_value_and_grad
-from ..models.skinner import (Skinner, build_skinner, frame_rows,
-                              posed_skeleton, skinner_apply_shared)
+from ..models.skinner import (Skinner, build_skinner, fk_transforms,
+                              frame_rows, posed_skeleton,
+                              skinner_apply_shared)
 from ..models.translator import TranslatorNet
 from ..ops.marching_cubes import marching_cubes
 from .. import parallel as D
@@ -48,7 +50,7 @@ from ..ops.rasterize import rasterize_mesh, splat_mask
 from ..ops.sparse_sdf import grid_world_coords, sparse_sdf_grid
 from ..render.camera import (Camera, ang_threshold, cam_pos, make_camera,
                              transform_points_screen, view_rays)
-from ..utils import meshops
+from ..utils import meshops, to_device
 from ..utils import trace
 from ..utils.math import (dct_null_space, gm_robust, inv3x3,
                           log_singular_values_sq_sum, normalize, quat2mat)
@@ -208,17 +210,15 @@ def grad_mask_tree(bank, cfg: StageStatic) -> Dict[str, bool]:
 def image_batch(batch: dict, device) -> Tuple[torch.Tensor, ...]:
     """uint8 batch -> (colours in [-1,1] BGR, mask {0,1}, normals in [-1,1]
     or None) float32 on device."""
-    trace.count("host_syncs", 2)     # the two copies below
-    img = torch.as_tensor(batch["img"], device=device)
-    mask = torch.as_tensor(batch["mask"], device=device)
+    img = to_device(batch["img"], device)
+    mask = to_device(batch["mask"], device)
     if img.dtype == torch.uint8:
         img = (img.float() / 255.0 - 0.5) * 2.0
     if mask.dtype != torch.float32:
         mask = mask.float()
     nrm = batch.get("normal")
     if nrm is not None:
-        trace.count("host_syncs")
-        nrm = torch.as_tensor(nrm, device=device)
+        nrm = to_device(nrm, device)
         if nrm.dtype == torch.uint8:
             nrm = 2.0 * nrm.float() / 255.0 - 1.0
     return img, mask, nrm
@@ -300,7 +300,13 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
     its share's part of the global mean; the per-frame counts are summed
     over ranks first).  One all-reduce then sums the gradients and the info
     values, and every rank takes the same Adam step.  Without a group every
-    collective is a no-op and each share is the whole."""
+    collective is a no-op and each share is the whole.
+
+    Each pass runs the poses' forward kinematics once: the geom pass's, the
+    inner pass's (its deform and the consistency term), the outer pass's
+    (the solve, detached, the IFT correction and the Jacobian) and the DCT
+    windows'.  Past the first step the host waits for the device only at
+    the exact-size binning's reads (8 a splatted frame) and the readback."""
     surf_cfg = SurfaceConfig(n_iters=cfg.surf_iters,
                              athreshold_deg=ang_thresh_deg,
                              newton=cfg.surf_newton)
@@ -310,6 +316,10 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
     radius_px = int(np.round(cfg.radius / 2.0 * float(min(H, W)) / 1.2))
     sdf_net, translator, render_net = nets.sdf, nets.translator, nets.netRender
     surf_nets = (sdf_net, translator, skinner)
+    dctnull_dev = to_device(dctnull, skinner.joints.device)
+    # the update's flags, learnt at the first step: "grad" and "present"
+    # (agreed over ranks) and this rank's own info keys, "keys"
+    agreed = {}
 
     def frame_params(bank, fids):
         poses, trans = bank["poses"][fids], bank["trans"][fids]
@@ -348,9 +358,11 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
             cam = camera_from_bank(bank, H, W, cfg)
             poses, trans, dcond, _ = frame_params(bank, fids)
             binds = torch.arange(N, device=tv.device).repeat_interleave(nv)
-            def_verts = deformer_apply(translator, skinner, tv.repeat(N, 1),
-                                       binds, dcond, poses, trans,
-                                       r_def)[0].reshape(N, nv, 3)
+            # one FK for the deform and the consistency term
+            A = fk_transforms(skinner, poses)[0]
+            def_verts = deformer_apply_transforms(
+                translator, skinner, tv.repeat(N, 1), binds, dcond, A, trans,
+                r_def)[0].reshape(N, nv, 3)
             valid = torch.ones(nv, dtype=torch.bool, device=tv.device)
             masks = torch.stack([splat_mask(cam, def_verts[i], valid,
                                             cfg.radius) for i in range(N)])
@@ -370,7 +382,7 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
                 loss = loss + w.norm_weight * nc
                 info["pc_norm_loss"] = nc.detach()
             if w.def_consistent_weight > 0.0:
-                lbs_b = skinner_apply_shared(skinner, tv, poses, trans)
+                lbs_b = skinner_apply_shared(skinner, tv, A, trans)
                 dc = L.def_consistency_loss(def_verts, lbs_b, valid,
                                             w.def_consistent_c)
                 loss = loss + w.def_consistent_weight * dc
@@ -394,11 +406,12 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
     def gt_normals(cam, gtNs, ray_binds, ray_rows, ray_cols):
         """The rays' GT normals in world space, unit length, and where they
         are valid (a map's zero normal is not)."""
-        trace.count("host_syncs")
-        flip = torch.tensor([[-1.0, 0, 0], [0, 1.0, 0], [0, 0, -1.0]],
-                            device=gtNs.device)
         gtn = gtNs[ray_binds, ray_rows, ray_cols]
-        gtn_w = torch.einsum("ij,nj->ni", cam.R @ flip, gtn)
+        # cam.R @ diag(-1, 1, -1): the maps' x and z axes point the other way
+        R = cam.R
+        gtn_w = torch.einsum("ij,nj->ni",
+                             torch.stack([-R[:, 0], R[:, 1], -R[:, 2]], 1),
+                             gtn)
         norms = torch.linalg.norm(gtn_w, dim=-1, keepdim=True)
         return gtn_w / norms.clamp_min(1e-4), norms[..., 0] > 1e-4
 
@@ -417,9 +430,12 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
                            torch.ones(n_rays, device=new_verts.device)],
                           dim=-1)
         rays = view_rays(cam, pix)
-        pts, done = surface_points(surf_nets, surf_cfg, r_sdf, r_def, dcond,
-                                   poses, trans, rays, cam_pos(cam),
-                                   init_pts, ray_binds)
+        # one FK for the solve (detached), the IFT correction and the
+        # Jacobian
+        A = fk_transforms(skinner, poses)[0]
+        pts, done = surface_points(
+            surf_nets, surf_cfg, r_sdf, r_def, dcond, A, trans, rays,
+            cam_pos(cam), init_pts, ray_binds)
         done = done & sel_ok
         info["ray_converged"] = done.sum()
         use_normals = cfg.has_normals and w.normal_weight > 0.0
@@ -481,17 +497,14 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
                 wposes = wposes.detach()
             Nw = windows.shape[1]
             pj = posed_skeleton(skinner, wposes.reshape(N * Nw, 24, 3))
-            trace.count("host_syncs")
-            dct_loss = L.dct_prior_loss(
-                torch.as_tensor(dctnull, device=pj.device),
-                pj.reshape(N, Nw, 24, 3))
+            dct_loss = L.dct_prior_loss(dctnull_dev, pj.reshape(N, Nw, 24, 3))
             info["dct_loss"] = dct_loss
             total = total + dct_loss * w.dct_weight
 
         _, g_pts, feat = sdf_value_and_grad(sdf_net, pts, r_sdf)
         nx = normalize(g_pts)
         jac_d, _ = deformer_jacobian(translator, skinner, pts, ray_binds,
-                                     dcond, poses, trans, r_def)
+                                     dcond, A, trans, r_def)
         jinv, inv_ok = inv3x3(jac_d)
         info["inv_ok"] = inv_ok.sum()
         crays = torch.einsum("nij,nj->ni", jinv, rays)
@@ -574,24 +587,43 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
         if unknown:
             raise KeyError(f"info keys outside STEP_INFO_KEYS: {unknown}")
         with trace.span("step.update"):
-            # one all-reduce: the gradients, which leaves have one on some
-            # rank, and the info values with which keys some rank set
+            # one all-reduce: the gradients and the info values, and at the
+            # step function's first step which leaves have a gradient and
+            # which keys are set on some rank (read back once: both are
+            # fixed for the step function)
             leaves = [p for g in optimizer.param_groups for p in g["params"]]
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in leaves]
-            # two copies in (has_grad, present), three out (has_grad, the
-            # readback of vals and present)
-            trace.count("host_syncs", 5)
-            has_grad = torch.tensor([float(p.grad is not None)
-                                     for p in leaves], device=dev)
+            local = [p.grad is not None for p in leaves]
+            grads = [p.grad if h else torch.zeros_like(p)
+                     for p, h in zip(leaves, local)]
             zero = torch.zeros((), device=dev)
             vals = torch.stack([info[k].float() if k in info else zero
                                 for k in STEP_INFO_KEYS])
-            present = torch.tensor([float(k in info) for k in STEP_INFO_KEYS],
-                                   device=dev)
-            D.allreduce_sum_(grads + [has_grad, vals, present])
-            for p, g, h in zip(leaves, grads, has_grad.tolist()):
-                if h > 0 and p.grad is None:
+            if not agreed:
+                agreed["keys"] = set(info)
+                flags = to_device(torch.tensor(
+                    [float(h) for h in local]
+                    + [float(k in info) for k in STEP_INFO_KEYS]), dev)
+                D.allreduce_sum_(grads + [vals, flags])
+                trace.count("host_syncs")
+                f = flags.tolist()
+                agreed["grad"] = [n > 0 for n in f[:len(leaves)]]
+                agreed["present"] = [n > 0 for n in f[len(leaves):]]
+            else:
+                # a step that breaks what the first step learnt raises on
+                # this rank alone, before the all-reduce: under data
+                # parallelism the other ranks then wait in it until the
+                # process group's timeout
+                if any(h and not a for h, a in zip(local, agreed["grad"])):
+                    raise RuntimeError("a leaf has a gradient that it had on "
+                                       "no rank at the step function's "
+                                       "first step")
+                if set(info) != agreed["keys"]:
+                    raise RuntimeError(
+                        f"info keys {sorted(set(info) ^ agreed['keys'])} "
+                        f"differ from the step function's first step")
+                D.allreduce_sum_(grads + [vals])
+            for p, g, a in zip(leaves, grads, agreed["grad"]):
+                if a and p.grad is None:
                     p.grad = g
             with torch.no_grad():
                 for k, trainable in grad_mask_tree(bank, cfg).items():
@@ -601,8 +633,9 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
                 group["lr"] = float(lr)
             optimizer.step()
             # the readback, with the device counters of the step (if any)
+            trace.count("host_syncs")
             out = {k: v for k, v, n in zip(STEP_INFO_KEYS, trace.tolist(vals),
-                                           present.tolist()) if n > 0}
+                                           agreed["present"]) if n}
         return new_tmp, out
 
     # the passes, for diagnostics (tools/profile_step.py, bench_outer.py):
@@ -1028,13 +1061,11 @@ class Trainer:
         """The step's frame arguments: (gtCs, gtMs, gtNs, fids, windows) on
         the device, from frames fids and their uint8 batch."""
         windows, _ = self.dataset.window_indices(fids, self.stage_cfg.window)
-        trace.count("host_syncs", 2)     # the copies of fids and windows
         gtCs, gtMs, gtNs = image_batch(batch, self.device)
         if gtNs is None:
             gtNs = torch.zeros_like(gtCs)
-        return (gtCs, gtMs, gtNs,
-                torch.as_tensor(np.asarray(fids), device=self.device),
-                torch.as_tensor(windows, device=self.device))
+        return (gtCs, gtMs, gtNs, to_device(np.asarray(fids), self.device),
+                to_device(windows, self.device))
 
     def train_step(self, fids, batch: dict, lr: float) -> Dict[str, float]:
         with trace.span("train_step"):

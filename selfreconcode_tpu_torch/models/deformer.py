@@ -43,11 +43,13 @@ def point_jacobian(fn, pts: torch.Tensor, create_graph: bool = True):
 
 
 def deformer_jacobian(translator: TranslatorNet, skinner: Skinner, pts,
-                      batch_inds, dcond, poses, trans, ratio=None,
+                      batch_inds, dcond, A, trans, ratio=None,
                       create_graph: bool = True):
-    """(jac (N,3,3), deformed (N,3)); differentiable again with
-    create_graph (the normal loss differentiates through it)."""
+    """(jac (N,3,3), deformed (N,3)) at the poses' FK transforms A
+    (B,24,4,4) of ``fk_transforms``; differentiable again with create_graph
+    (the normal loss differentiates through it)."""
     return point_jacobian(
-        lambda q: deformer_apply(translator, skinner, q, batch_inds, dcond,
-                                 poses, trans, ratio)[0],
+        lambda q: deformer_apply_transforms(translator, skinner, q,
+                                            batch_inds, dcond, A, trans,
+                                            ratio)[0],
         pts, create_graph)

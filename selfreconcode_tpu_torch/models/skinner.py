@@ -31,16 +31,21 @@ class Skinner:
 
 
 def fk_transforms(skinner: Skinner, poses: torch.Tensor):
-    """poses (B,24,3) axis-angle -> (A (B,24,4,4) template->posed before
-    +trans, FK results (B,24,4,4))."""
-    B = poses.shape[0]
-    Rs = batch_rodrigues(poses.reshape(-1, 3)).reshape(B, 24, 3, 3)
+    """poses (B,J,3) axis-angle -> (A (B,J,4,4) template->posed before
+    +trans, FK results (B,J,4,4)).  One Rodrigues and one homogeneous build
+    for all joints, then the chain joint by joint: each joint's transform is
+    its parent's times its own, the same products in the same order as a
+    chain that builds each joint's transform alone, so the same bits."""
+    B, n = poses.shape[0], len(skinner.parents)
+    Rs = batch_rodrigues(poses.reshape(-1, 3)).reshape(B, n, 3, 3)
     J = skinner.joints
-    results = [make_homo(Rs[:, 0], J[0].expand(B, 3))]
-    for i in range(1, len(skinner.parents)):
-        p = skinner.parents[i]
-        a_here = make_homo(Rs[:, i], (J[i] - J[p]).expand(B, 3))
-        results.append(results[p] @ a_here)
+    # each joint's offset from its parent (the root's from the origin)
+    rel = torch.cat([J[:1], J[1:] - torch.stack([J[p] for p in
+                                                 skinner.parents[1:]])])
+    H = make_homo(Rs, rel.expand(B, n, 3))
+    results = [H[:, 0]]
+    for i in range(1, n):
+        results.append(results[skinner.parents[i]] @ H[:, i])
     results = torch.stack(results, dim=1)
     A = torch.einsum("bjik,jkl->bjil", results, skinner.init_pose_inv)
     return A, results
@@ -87,9 +92,9 @@ def skinner_apply_transforms(skinner: Skinner, A, pts, batch_inds, trans):
     return out + onehot @ trans
 
 
-def skinner_apply_shared(skinner: Skinner, pts, poses, trans):
-    """pts (V,3) shared by all B frames -> (B,V,3)."""
-    A, _ = fk_transforms(skinner, poses)
+def skinner_apply_shared(skinner: Skinner, pts, A, trans):
+    """pts (V,3) shared by all B frames, skinned at the poses' FK
+    transforms A (B,24,4,4) of ``fk_transforms`` -> (B,V,3)."""
     w = sample_skin_weights(skinner, pts)
     T = torch.einsum("vj,bjkl->bvkl", w, A)
     out = torch.einsum("bvij,vj->bvi", T[:, :, :3, :3], pts) + T[:, :, :3, 3]

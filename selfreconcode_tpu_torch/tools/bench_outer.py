@@ -45,6 +45,7 @@ def main(argv=None, resolutions=None, tune=None) -> dict:
     from ..cli.train import open_device
     from ..engine.surface import SurfaceConfig, surface_points
     from ..engine.trainer import camera_from_bank
+    from ..models.skinner import fk_transforms
     from ..render.camera import cam_pos, view_rays
     import torch
 
@@ -65,7 +66,8 @@ def main(argv=None, resolutions=None, tune=None) -> dict:
                            torch.ones(rows.shape[0], device=dev)], dim=-1)
         return surface_points(
             (nets.sdf, nets.translator, tr.skinner), surf_cfg, ratios[0],
-            ratios[1], bank["dcond"][fids], bank["poses"][fids],
+            ratios[1], bank["dcond"][fids],
+            fk_transforms(tr.skinner, bank["poses"][fids])[0],
             bank["trans"][fids], view_rays(cam, pix), cam_pos(cam),
             init_pts, binds)
 

@@ -86,7 +86,8 @@ def test_skinner_apply_shared(setup):
     j = JSK.skinner_apply_shared(jsk, jnp.asarray(d["pts"]),
                                  jnp.asarray(d["poses"]), jnp.asarray(d["trans"]))
     t = skinner_apply_shared(tsk, torch.tensor(d["pts"]),
-                             torch.tensor(d["poses"]), torch.tensor(d["trans"]))
+                             fk_transforms(tsk, torch.tensor(d["poses"]))[0],
+                             torch.tensor(d["trans"]))
     close(j, t)
 
 
@@ -105,7 +106,9 @@ def test_deformer_apply_and_jacobian(setup):
     close(jo, to.detach())
     close(joff, toff.detach())
     jj, jout = JD.deformer_jacobian(jp, jdef, *_args(d, "jax"), 0.8)
-    tj, tout = deformer_jacobian(tnet, tsk, *_args(d, "torch"), 0.8)
+    pts, binds, dcond, poses, trans = _args(d, "torch")
+    tj, tout = deformer_jacobian(tnet, tsk, pts, binds, dcond,
+                                 fk_transforms(tsk, poses)[0], trans, 0.8)
     close(jj, tj.detach())
     close(jout, tout.detach())
 
@@ -147,7 +150,8 @@ def test_double_backward_through_jacobian(setup):
     jg_p, jg_x = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(d["pts"]))
     pts, binds, dcond, poses, trans = _args(d, "torch")
     pts.requires_grad_(True)
-    tj, _ = deformer_jacobian(tnet, tsk, pts, binds, dcond, poses, trans, 0.8)
+    tj, _ = deformer_jacobian(tnet, tsk, pts, binds, dcond,
+                              fk_transforms(tsk, poses)[0], trans, 0.8)
     (tj * torch.tensor(target)).sum().backward()
     close(jg_x, pts.grad)
     for l, layer in enumerate(jg_p):

@@ -36,7 +36,7 @@ from selfreconcode_tpu_torch.interop import params_from_jax
 from selfreconcode_tpu_torch.models.deformer import (deformer_apply,
                                                      deformer_jacobian)
 from selfreconcode_tpu_torch.models.sdf import SDFNet, sdf_value_and_grad
-from selfreconcode_tpu_torch.models.skinner import Skinner
+from selfreconcode_tpu_torch.models.skinner import Skinner, fk_transforms
 from selfreconcode_tpu_torch.models.translator import TranslatorNet
 from selfreconcode_tpu_torch.utils import trace
 from selfreconcode_tpu_torch.utils.math import cross_matrix, inv3x3
@@ -158,7 +158,9 @@ def port_run(setup, cfg=SurfaceConfig(n_iters=10), leaves=None, init="init"):
     *_, sdf, tnet, skinner, d = setup
     lv = leaves if leaves is not None else port_leaves(d)
     pts, done = surface_points((sdf, tnet, skinner), cfg, 1.0, 1.0,
-                               lv["dcond"], lv["poses"], lv["trans"],
+                               lv["dcond"],
+                               fk_transforms(skinner, lv["poses"])[0],
+                               lv["trans"],
                                lv["rays"], lv["cam_c"],
                                torch.tensor(d[init]),
                                torch.tensor(d["binds"]).long())
@@ -185,8 +187,8 @@ def newton_with_fk_per_evaluation(nets, cfg, ratio_sdf, ratio_def, init,
         sdf, grad_p, _ = sdf_value_and_grad(sdf_net, p, ratio_sdf,
                                             create_graph=False)
         jac, d = deformer_jacobian(translator, skinner, p, binds, dcond,
-                                   poses, trans, ratio_def,
-                                   create_graph=False)
+                                   fk_transforms(skinner, poses)[0], trans,
+                                   ratio_def, create_graph=False)
         v_cross = cross_matrix(rays)
         direct = d.detach() - cam_c[None, :]
         Fc = torch.einsum("nij,nj->ni", v_cross, direct)
@@ -231,7 +233,9 @@ def test_newton_with_the_fk_hoisted_is_the_same_loop(setup, ratios):
     init, binds = torch.tensor(d["init"]), torch.tensor(d["binds"]).long()
     trace.read_and_clear()
     pts, done, B, dones = SURF._newton(
-        nets, cfg, *ratios, SURF._detached(skinner, **lv), init, binds)
+        nets, cfg, *ratios,
+        SURF._detached(lv["dcond"], fk_transforms(skinner, lv["poses"])[0],
+                       lv["trans"], lv["rays"], lv["cam_c"]), init, binds)
     ref = newton_with_fk_per_evaluation(nets, cfg, *ratios, init, binds,
                                         **lv)
     assert done.any() and not dones[0].all()      # rays froze in turn

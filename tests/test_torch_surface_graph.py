@@ -21,7 +21,7 @@ from selfreconcode_tpu_torch.engine.surface import (SurfaceConfig,
                                                     optimize_surface_points)
 from selfreconcode_tpu_torch.models.deformer import deformer_apply
 from selfreconcode_tpu_torch.models.sdf import SDFNet
-from selfreconcode_tpu_torch.models.skinner import build_skinner
+from selfreconcode_tpu_torch.models.skinner import build_skinner, fk_transforms
 from selfreconcode_tpu_torch.models.smpl import smpl_tmp_apose, toy_smpl_model
 from selfreconcode_tpu_torch.models.translator import TranslatorNet
 from selfreconcode_tpu_torch.utils import trace
@@ -67,7 +67,11 @@ def solve_inputs(nets, n_rays, seed, dev):
 def newton(nets, cfg, ratios, leaves, init, binds):
     """``_newton`` as the step calls it, on the FK of the leaves' poses."""
     return SURF._newton(nets, cfg, *ratios,
-                        SURF._detached(nets[2], **leaves), init, binds)
+                        SURF._detached(
+                            leaves["dcond"],
+                            fk_transforms(nets[2], leaves["poses"])[0],
+                            leaves["trans"], leaves["rays"], leaves["cam_c"]),
+                        init, binds)
 
 
 def graph_counters():

@@ -205,9 +205,11 @@ def test_solve_converged_counts(runs):
 
 
 def test_host_syncs_count_the_same_sites_every_step(runs):
-    _, recs, _ = runs[True]
+    tr, recs, _ = runs[True]
     n = [rec["counters"]["host_syncs"] for rec in recs]
-    assert n[1] == n[2] > 0
+    # per splatted frame point_seeds' 4, the binning's 1 and cell_bins' 3;
+    # then the readback
+    assert n[1] == n[2] == 8 * tr.stage_cfg.N + 1
     assert n[0] > n[1]                    # the remesh's own syncs
     # the off run counts them too: the host counter is always on
     assert [rec["counters"]["host_syncs"] for rec in runs[False][1]] == n
