@@ -321,9 +321,10 @@ def train(args, resolutions=None, skinner_res=None, tune=None,
 def trace_report(epoch: int, rec: dict) -> str:
     """The --trace line of an epoch from its record
     (``trace.read_and_clear``): per step, each span's ms as duration/self
-    (in the order the spans first started), the host syncs, the surface
-    solve's graph captures and replays, and the mean converged rays of the
-    solve before its first iteration and after each."""
+    (in the order the spans first started), the host syncs, the graph
+    captures and replays of the surface solve and of the outer pass's
+    body, and the mean converged rays of the solve before its first
+    iteration and after each."""
     n = sum(s["name"] == "train_step" for s in rec["spans"])
     if not n:
         return f"trace epoch {epoch}: no step"
@@ -336,10 +337,11 @@ def trace_report(epoch: int, rec: dict) -> str:
                        for k, (d, own) in tot.items())
            + f"; host_syncs {rec['counters'].get('host_syncs', 0) / n:.1f}"
            f" per step")
-    graphs = [rec["counters"].get(f"solve_graph_{k}", 0)
-              for k in ("captures", "replays")]
-    if any(graphs):
-        out += "; solve graph captures {}, replays {}".format(*graphs)
+    for part in ("solve", "outer"):
+        graphs = [rec["counters"].get(f"{part}_graph_{k}", 0)
+                  for k in ("captures", "replays")]
+        if any(graphs):
+            out += f"; {part} graph captures {graphs[0]}, replays {graphs[1]}"
     rows = rec["device"].get("solve_converged", [])
     rows = [r for r in rows if len(r) == len(rows[-1])]
     if rows:

@@ -25,8 +25,11 @@ an autograd.Function:
 has p*'s value and exactly the IFT gradient.
 
 The solve skins at the poses' forward-kinematics transforms, which its
-caller computes once (``surface_points`` takes them; the solve reads them
-detached).  In training on the card (CUDA tensors,
+caller computes (``surface_points`` takes them; the solve reads them
+detached).  ``surface_points`` is the solve (``solve_surface``: the points,
+their converged mask and B) followed by the correction (``ift_points``);
+the training step calls the two apart, the correction inside the outer
+pass's CUDA graph.  In training on the card (CUDA tensors,
 Newton, no early exit, grad enabled) the fixed-count Newton loop is one
 CUDA graph, captured at the first solve of its shapes and replayed at every
 later one (``_NewtonGraph``): the loop is thousands of small kernels that
@@ -46,7 +49,7 @@ from ..models.sdf import sdf_value_and_grad
 from ..models.skinner import fk_transforms
 from ..utils import trace
 from ..utils.math import cross_matrix, inv3x3
-from ..utils.pe import annealing_band_weights
+from ..utils.pe import band_weights
 
 
 class SurfaceConfig(NamedTuple):
@@ -214,9 +217,9 @@ def _newton(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, det, init_pts,
     sdf_net, translator, _ = nets
     dev = init_pts.device
     inputs = dict(init_pts=init_pts.detach(), batch_inds=batch_inds, **det,
-                  ratio_sdf=_band_weights(sdf_net.multires, ratio_sdf, dev),
-                  ratio_def=_band_weights(translator.multires, ratio_def,
-                                          dev))
+                  ratio_sdf=band_weights(sdf_net.multires, ratio_sdf, dev),
+                  ratio_def=band_weights(translator.multires, ratio_def,
+                                         dev))
     if not (init_pts.is_cuda and not cfg.early_exit
             and torch.is_grad_enabled()):
         return _newton_loop(nets, cfg, **inputs)
@@ -230,14 +233,6 @@ def _newton(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, det, init_pts,
         trace.count("solve_graph_replays")
     _GRAPHS[key] = graph
     return graph.replay(inputs)
-
-
-def _band_weights(multires, ratio, device):
-    """The encoding's band weights at ratio; at None (no annealing) ones,
-    which scale each band by exactly 1."""
-    if ratio is None:
-        return torch.ones(multires, device=device)
-    return annealing_band_weights(multires, ratio, device)
 
 
 def _cauchy(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, det, init_pts,
@@ -301,19 +296,24 @@ def optimize_surface_points(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def,
                   cam_c, init_pts, batch_inds)[:2]
 
 
-def surface_points(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond,
-                   A, trans, rays, cam_c, init_pts, batch_inds):
-    """nets = (sdf_net, translator, skinner), A (B,24,4,4) the poses' FK
-    transforms of ``fk_transforms``: the solve reads A detached and the IFT
-    correction A itself, so a caller that skins more points at these poses
-    runs the FK once.  Returns (pts (N,3) carrying the IFT gradient,
-    converged mask (N,))."""
+def solve_surface(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond, A,
+                  trans, rays, cam_c, init_pts, batch_inds):
+    """The surface solve without a gradient, at the poses' FK transforms A:
+    (pts (N,3), converged mask (N,), B = dF/dp at pts (N,4,3)), what
+    ``ift_points`` attaches the gradient with."""
     pts, done, B, det = _solve(nets, cfg, ratio_sdf, ratio_def, dcond, A,
                                trans, rays, cam_c, init_pts, batch_inds)
     if B is None:
         B = _constraint_and_B(nets, pts, batch_inds, ratio_sdf=ratio_sdf,
                               ratio_def=ratio_def, **det)[1]
+    return pts, done, B
 
+
+def ift_points(nets, ratio_sdf, ratio_def, dcond, A, trans, rays, cam_c,
+               batch_inds, pts, done, B):
+    """The solve's points (``solve_surface``: pts, done, B) carrying the
+    IFT gradient w.r.t. the nets' parameters and dcond, A, trans, rays and
+    cam_c."""
     # IFT: M = (B^T B)^-1 B^T at the solution, masked like the JAX backward
     btb_inv, inv_ok = inv3x3(torch.einsum("nki,nkj->nij", B, B))
     M = torch.einsum("nij,nkj->nik", btb_inv, B)                 # (N,3,4)
@@ -329,7 +329,20 @@ def surface_points(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond,
     F_theta = torch.cat([sdf_theta[:, None], Fc_theta], dim=1)
     F_theta = torch.where(keep[:, :, 0], F_theta, torch.zeros_like(F_theta))
     corr = -torch.einsum("nik,nk->ni", M, F_theta)
-    return pts + (corr - corr.detach()), done
+    return pts + (corr - corr.detach())
+
+
+def surface_points(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond,
+                   A, trans, rays, cam_c, init_pts, batch_inds):
+    """nets = (sdf_net, translator, skinner), A (B,24,4,4) the poses' FK
+    transforms of ``fk_transforms``: the solve reads A detached and the IFT
+    correction A itself, so a caller that skins more points at these poses
+    runs the FK once.  Returns (pts (N,3) carrying the IFT gradient,
+    converged mask (N,))."""
+    pts, done, B = solve_surface(nets, cfg, ratio_sdf, ratio_def, dcond, A,
+                                 trans, rays, cam_c, init_pts, batch_inds)
+    return ift_points(nets, ratio_sdf, ratio_def, dcond, A, trans, rays,
+                      cam_c, batch_inds, pts, done, B), done
 
 
 def surface_inits_from_fragments(tmp_verts, tmp_faces, pix_to_face, bary):

@@ -15,7 +15,8 @@ One step (``make_train_step``) is three passes:
   outer  surface points (Newton, or the reference's Cauchy step with
          surf_newton=False) with the IFT gradient, eikonal, deformation
          regularizer, DCT prior, colour and normal losses, SDF anchor;
-         backward, add to the inner gradients, mask frozen leaves, Adam.
+         backward (on the card all after the solve is one CUDA graph),
+         add to the inner gradients, mask frozen leaves, Adam.
 
 The trainer builds the skinner, pretrains the SDF (IGR), remeshes (octree
 sweep + marching cubes, then the template's edge topology) every
@@ -29,11 +30,13 @@ import dataclasses
 import os
 import os.path as osp
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..models.deformer import (deformer_apply, deformer_apply_transforms,
@@ -54,10 +57,11 @@ from ..utils import meshops, to_device
 from ..utils import trace
 from ..utils.math import (dct_null_space, gm_robust, inv3x3,
                           log_singular_values_sq_sum, normalize, quat2mat)
+from ..utils.pe import band_weights
 from ..utils.sampling import sample_points, subsample_mask_topk
 from . import losses as L
-from .surface import (SurfaceConfig, surface_inits_from_fragments,
-                      surface_points)
+from .surface import (SurfaceConfig, ift_points, solve_surface,
+                      surface_inits_from_fragments)
 
 # ---------------------------------------------------------------------------
 # Static stage configuration
@@ -275,6 +279,48 @@ def fragment_seeds(cam: Camera, verts: torch.Tensor, faces: torch.Tensor,
 # The training step
 # ---------------------------------------------------------------------------
 
+class _OuterGraph:
+    """``body(inputs)``, a forward that ends in its ``backward()`` into the
+    leaves' .grad, captured as one CUDA graph on static input buffers.  The
+    graph adds into each leaf's .grad where it is (``zero_grad(set_to_none=
+    False)`` keeps it there) and reads the parameters where they are, so
+    in-place updates reach it.  The warm-up on a side stream leaves every
+    .grad as it found it; a leaf that had none and that the body gives one
+    gets a zero .grad, so that the capture adds into it too."""
+
+    def __init__(self, body, inputs: dict, leaves):
+        self.inputs = {k: v.clone() for k, v in inputs.items()}
+        before = [None if p.grad is None else p.grad.clone() for p in leaves]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            body(self.inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        for p, g in zip(leaves, before):
+            if g is not None:
+                p.grad.copy_(g)
+            elif p.grad is not None:
+                p.grad = torch.zeros_like(p)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.outputs = body(self.inputs)
+        trace.count("outer_graph_captures")
+
+    def replay(self, inputs: dict):
+        """The body's outputs on `inputs`, copied out of the graph's
+        buffers; the leaves' .grad hold its gradients."""
+        for k, v in inputs.items():
+            self.inputs[k].copy_(v)
+        self.graph.replay()
+        total, info = self.outputs
+        return total.clone(), {k: v.clone() for k, v in info.items()}
+
+
+# A step function holds one graph per shapes of its outer pass; the bound
+# frees the graphs of shapes or storage gone by.
+_MAX_OUTER_GRAPHS = 2
+
+
 # every key a step's info may hold (the step sums their values over the
 # ranks in this order)
 STEP_INFO_KEYS = (
@@ -302,11 +348,19 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
     values, and every rank takes the same Adam step.  Without a group every
     collective is a no-op and each share is the whole.
 
-    Each pass runs the poses' forward kinematics once: the geom pass's, the
-    inner pass's (its deform and the consistency term), the outer pass's
-    (the solve, detached, the IFT correction and the Jacobian) and the DCT
-    windows'.  Past the first step the host waits for the device only at
-    the exact-size binning's reads (8 a splatted frame) and the readback."""
+    The outer pass is a prelude and a body (``outer_prelude``,
+    ``outer_terms`` and its backward): the prelude solves for the surface
+    points and takes what a remesh resizes; the body, which reads only
+    device tensors of fixed shapes, is on the card without a process group
+    one CUDA graph, captured at the step function's first step and
+    replayed at every later one.
+
+    The geom pass, the inner pass (its deform and the consistency term)
+    and the DCT windows each run the poses' forward kinematics once; the
+    outer pass twice, detached for the solve and with its graph for the
+    IFT correction and the Jacobian.  Past the first step the host waits
+    for the device only at the exact-size binning's reads (8 a splatted
+    frame) and the readback."""
     surf_cfg = SurfaceConfig(n_iters=cfg.surf_iters,
                              athreshold_deg=ang_thresh_deg,
                              newton=cfg.surf_newton)
@@ -316,6 +370,9 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
     radius_px = int(np.round(cfg.radius / 2.0 * float(min(H, W)) / 1.2))
     sdf_net, translator, render_net = nets.sdf, nets.translator, nets.netRender
     surf_nets = (sdf_net, translator, skinner)
+    skinner_tensors = [getattr(skinner, f.name)
+                       for f in dataclasses.fields(skinner)
+                       if torch.is_tensor(getattr(skinner, f.name))]
     dctnull_dev = to_device(dctnull, skinner.joints.device)
     # the update's flags, learnt at the first step: "grad" and "present"
     # (agreed over ranks) and this rank's own info keys, "keys"
@@ -415,32 +472,78 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
         norms = torch.linalg.norm(gtn_w, dim=-1, keepdim=True)
         return gtn_w / norms.clamp_min(1e-4), norms[..., 0] > 1e-4
 
-    def outer_loss(bank, new_tmp, gtCs, gtNs, fids, init_pts, sel_ok,
-                   ray_rows, ray_cols, ray_binds, windows, ratios, draws):
-        """The outer pass's forward: (total loss with its graph, info).
-        The rays (and the point terms' points) are this rank's share."""
-        r_sdf, r_def, r_ren = ratios
+    def pixels(ray_rows, ray_cols):
+        """The rays' pixel coordinates (column, row, 1)."""
+        return torch.stack([ray_cols.float(), ray_rows.float(),
+                            torch.ones(ray_rows.shape[0],
+                                       device=ray_rows.device)], dim=-1)
+
+    def outer_prelude(bank, new_tmp, gtCs, gtNs, fids, init_pts, sel_ok,
+                      ray_rows, ray_cols, ray_binds, windows, ratios, draws):
+        """The outer pass up to its loss terms, without a gradient: the
+        surface solve at the camera and the poses' FK, both detached (its
+        own span, and on the card its own graph), the template's two
+        subsamples (sized by the template, which a remesh resizes) and the
+        ratios' band weights.  Returns ``outer_terms``' inputs: device
+        tensors only, whose shapes a remesh leaves as they are while the
+        template has more than cfg.anchor_sub vertices."""
+        dev = init_pts.device
+        w_sdf, w_def, w_ren = (band_weights(m, r, dev) for m, r in zip(
+            (sdf_net.multires, translator.multires, render_net.multires_v),
+            ratios))
+        with torch.no_grad():
+            cam = camera_from_bank(bank, H, W, cfg)
+            poses, trans, dcond, _ = frame_params(bank, fids)
+            rays = view_rays(cam, pixels(ray_rows, ray_cols))
+            A = fk_transforms(skinner, poses)[0]
+            new_verts = new_tmp.verts.detach()
+            nv = new_verts.shape[0]
+            valid_v = torch.ones(nv, dtype=torch.bool, device=dev)
+            tidx, _ = subsample_mask_topk(valid_v, n_eik_tmp(cfg, nv),
+                                          scores=draws.eik_scores)
+            if draws.anchor_scores is not None:
+                aidx, avalid = subsample_mask_topk(
+                    valid_v, cfg.anchor_sub, scores=draws.anchor_scores)
+                averts = new_verts[aidx]
+            else:
+                averts, avalid = new_verts, valid_v
+        pts, done, B = solve_surface(surf_nets, surf_cfg, w_sdf, w_def,
+                                     dcond, A, trans, rays, cam_pos(cam),
+                                     init_pts, ray_binds)
+        return dict(gtCs=gtCs, gtNs=gtNs, fids=fids, windows=windows,
+                    sel_ok=sel_ok, ray_rows=ray_rows, ray_cols=ray_cols,
+                    ray_binds=ray_binds, pts=pts, done=done, B=B,
+                    eik_verts=new_verts[tidx], anchor_verts=averts,
+                    anchor_valid=avalid, eik_normal=draws.eik_normal,
+                    eik_uniform=draws.eik_uniform,
+                    def_normal=draws.def_normal, w_sdf=w_sdf, w_def=w_def,
+                    w_ren=w_ren)
+
+    def outer_terms(bank, x):
+        """The outer pass's loss terms on ``outer_prelude``'s inputs x:
+        (total loss with its graph, info).  It reads x's tensors and the
+        leaves, and no number that changes from step to step, so a CUDA
+        graph replays it.  The rays (and the point terms' points) are this
+        rank's share."""
+        r_sdf, r_def, r_ren = x["w_sdf"], x["w_def"], x["w_ren"]
+        ray_rows, ray_cols = x["ray_rows"], x["ray_cols"]
+        ray_binds = x["ray_binds"]
         cam = camera_from_bank(bank, H, W, cfg)
-        poses, trans, dcond, _ = frame_params(bank, fids)
-        new_verts = new_tmp.verts.detach()
-        nv = new_verts.shape[0]
+        poses, trans, dcond, _ = frame_params(bank, x["fids"])
         n_rays = ray_rows.shape[0]
         info = {}
-        pix = torch.stack([ray_cols.float(), ray_rows.float(),
-                           torch.ones(n_rays, device=new_verts.device)],
-                          dim=-1)
-        rays = view_rays(cam, pix)
-        # one FK for the solve (detached), the IFT correction and the
-        # Jacobian
+        rays = view_rays(cam, pixels(ray_rows, ray_cols))
+        # one FK for the IFT correction and the Jacobian
         A = fk_transforms(skinner, poses)[0]
-        pts, done = surface_points(
-            surf_nets, surf_cfg, r_sdf, r_def, dcond, A, trans, rays,
-            cam_pos(cam), init_pts, ray_binds)
-        done = done & sel_ok
+        pts = ift_points(surf_nets, r_sdf, r_def, dcond, A, trans, rays,
+                         cam_pos(cam), ray_binds, x["pts"], x["done"],
+                         x["B"])
+        done = x["done"] & x["sel_ok"]
         info["ray_converged"] = done.sum()
         use_normals = cfg.has_normals and w.normal_weight > 0.0
         if use_normals:
-            gtn_w, nok = gt_normals(cam, gtNs, ray_binds, ray_rows, ray_cols)
+            gtn_w, nok = gt_normals(cam, x["gtNs"], ray_binds, ray_rows,
+                                    ray_cols)
         else:
             nok = torch.zeros_like(done)
         # the per-frame ray counts of every rank, before any loss
@@ -449,13 +552,10 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
             cnt_n = L.frame_counts(ray_binds, nok & done, N)
             D.allreduce_sum_([cnt_c, cnt_n])
 
-        valid_v = torch.ones(nv, dtype=torch.bool, device=new_verts.device)
-        tidx, _ = subsample_mask_topk(valid_v, n_eik_tmp(cfg, nv),
-                                      scores=draws.eik_scores)
-        base = torch.cat([D.all_gather_rows(pts.detach()), new_verts[tidx]],
+        base = torch.cat([D.all_gather_rows(pts.detach()), x["eik_verts"]],
                          dim=0)
         nonmnfld = sample_points(base, 1.8, 0.01,
-                                 noise=(draws.eik_normal, draws.eik_uniform))
+                                 noise=(x["eik_normal"], x["eik_uniform"]))
         n_eik = nonmnfld.shape[0]
         nonmnfld = D.share(nonmnfld)
         g_eik = sdf_grad(sdf_net, nonmnfld, r_sdf)
@@ -475,7 +575,7 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
 
         if w.def_regu_weight > 0.0:
             jit_pts = sample_points(base, 1.8, 0.01, ratio=0,
-                                    noise=(draws.def_normal,))
+                                    noise=(x["def_normal"],))
             dr_pts = torch.cat([base, jit_pts], dim=0)
             n_dr = dr_pts.shape[0]
             dr_pts = D.share(dr_pts)
@@ -492,10 +592,10 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
 
         main = D.is_main()
         if main and (cfg.opt_pose or cfg.opt_trans) and w.dct_weight > 0.0:
-            wposes = bank["poses"][windows]
+            wposes = bank["poses"][x["windows"]]
             if not cfg.opt_pose:
                 wposes = wposes.detach()
-            Nw = windows.shape[1]
+            Nw = x["windows"].shape[1]
             pj = posed_skeleton(skinner, wposes.reshape(N * Nw, 24, 3))
             dct_loss = L.dct_prior_loss(dctnull_dev, pj.reshape(N, Nw, 24, 3))
             info["dct_loss"] = dct_loss
@@ -512,7 +612,7 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
 
         if w.color_weight > 0.0:
             colors = render_net(pts, nx, crays, feat, r_ren)
-            gt = gtCs[ray_binds, ray_rows, ray_cols]
+            gt = x["gtCs"][ray_binds, ray_rows, ray_cols]
             color_loss = L.color_l1_loss(colors, gt, ray_binds, done, cnt_c)
             info["color_loss"] = color_loss
             total = total + w.color_weight * color_loss
@@ -534,24 +634,76 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
             total = total + w.normal_weight * normal_loss
 
         if main:
-            if draws.anchor_scores is not None:
-                aidx, avalid = subsample_mask_topk(
-                    valid_v, cfg.anchor_sub, scores=draws.anchor_scores)
-                averts = new_verts[aidx]
-            else:
-                averts, avalid = new_verts, valid_v
-            anchor = L.sdf_anchor_loss(sdf_net(averts, r_sdf)[0], avalid, 0.0)
+            anchor = L.sdf_anchor_loss(sdf_net(x["anchor_verts"], r_sdf)[0],
+                                       x["anchor_valid"], 0.0)
             info["pc_loss_sdf"] = anchor
             total = total + anchor * w.pc_weight
         return total, info
 
+    def outer_loss(*args):
+        """The outer pass's forward: (total loss with its graph, info)."""
+        return outer_terms(args[0], outer_prelude(*args))
+
+    def outer_body(bank, x):
+        """``outer_terms``, then its backward into the leaves' .grad:
+        (total, info), detached."""
+        total, info = outer_terms(bank, x)
+        with trace.span("step.outer.backward"):
+            total.backward()
+        return total.detach(), {k: v.detach() for k, v in info.items()}
+
+    # the body's CUDA graphs, least recently used first: one while the
+    # stage's shapes and storage hold (the stage's configuration is this
+    # step function's own)
+    graphs: "OrderedDict[tuple, _OuterGraph]" = OrderedDict()
+
+    def graph_leaves(bank):
+        """Every tensor whose .grad the body may add to."""
+        out = {id(p): p for g in optimizer.param_groups for p in g["params"]}
+        out.update((id(v), v) for v in bank.values())
+        return list(out.values())
+
+    def graph_key(x, leaves) -> tuple:
+        """What a captured body depends on besides its input buffers'
+        values: their shapes and dtypes, the switches that choose its
+        kernels, and the address and shape of every tensor it reads or
+        writes in place (a new storage captures anew)."""
+        read = [*leaves, *(p.grad for p in leaves), *skinner_tensors,
+                dctnull_dev]
+        return (torch.backends.cuda.matmul.allow_tf32,
+                torch.are_deterministic_algorithms_enabled(),
+                tuple((k, tuple(v.shape), v.dtype) for k, v in x.items()),
+                tuple(None if t is None else (t.data_ptr(), tuple(t.shape))
+                      for t in read))
+
+    def graphed_body(bank, x):
+        """``outer_body`` as a replay of its graph for x's shapes, captured
+        first where there is none."""
+        leaves = graph_leaves(bank)
+        key = graph_key(x, leaves)
+        graph = graphs.pop(key, None)
+        if graph is None:
+            while len(graphs) >= _MAX_OUTER_GRAPHS:
+                graphs.popitem(last=False)
+            graph = _OuterGraph(lambda xs: outer_body(bank, xs), x, leaves)
+            # the capture gave a .grad to each leaf that the body adds to
+            key = graph_key(x, leaves)
+        else:
+            trace.count("outer_graph_replays")
+        graphs[key] = graph
+        return graph.replay(x)
+
     def outer_pass(*args):
-        """outer_loss, then its backward into the leaves' .grad."""
+        """The outer pass and its backward into the leaves' .grad: the
+        prelude, then the body, on the card a replay of its CUDA graph.
+        Under a process group (of any size) the body all-reduces and
+        gathers rows, which reads counts back to the host: it runs
+        eagerly there, as on the CPU."""
         with trace.span("step.outer"):
-            total, info = outer_loss(*args)
-            with trace.span("step.outer.backward"):
-                total.backward()
-            return total.detach(), {k: v.detach() for k, v in info.items()}
+            x = outer_prelude(*args)
+            if x["pts"].is_cuda and not dist.is_initialized():
+                return graphed_body(args[0], x)
+            return outer_body(args[0], x)
 
     def ray_pixels(idx):
         """(frame, row, column) of each selected pixel id."""
@@ -644,6 +796,8 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
     step.geom_pass = geom_pass
     step.inner_pass = inner_pass
     step.outer_loss = outer_loss
+    step.outer_prelude = outer_prelude
+    step.outer_body = outer_body
     step.outer_pass = outer_pass
     step.ray_pixels = ray_pixels
     return step

@@ -7,9 +7,12 @@ synthetic trainer at the production octree resolutions, remeshed).
   surface solve        ``surface_points`` alone (Newton or Cauchy, the IFT
                        correction built);
   surface solve + IFT  the same, then the backward of sum(pts);
-  loss forward         ``outer_loss``: the solve and every loss term;
-  outer pass           ``outer_pass``: the forward and its backward;
-  backward             outer pass - loss forward (printed);
+  loss forward         ``outer_loss``: the solve and every loss term,
+                       eagerly;
+  outer pass           ``outer_pass``: the forward and its backward (on
+                       the card a replay of the body's CUDA graph);
+  backward             outer pass - loss forward (printed; on the card
+                       the eager forward's host time less the graph's);
   Adam                 ``optimizer.step()`` on the outer pass's gradients.
 
     python -m selfreconcode_tpu_torch.tools.bench_outer --h 1080 \\

@@ -19,6 +19,18 @@ def annealing_band_weights(multires: int, ratio, device=None) -> torch.Tensor:
     return (1.0 - torch.cos(math.pi * x)) / 2.0
 
 
+def band_weights(multires: int, ratio, device=None) -> torch.Tensor:
+    """A ratio as ``positional_encoding`` takes it, as its band weights on
+    the device: at a number ``annealing_band_weights``, at None (no
+    annealing) ones, which scale each band by exactly 1, and band weights
+    themselves as they are."""
+    if torch.is_tensor(ratio) and ratio.dim() == 1:
+        return ratio
+    if ratio is None:
+        return torch.ones(multires, device=device)
+    return annealing_band_weights(multires, ratio, device)
+
+
 def positional_encoding(x: torch.Tensor, multires: int,
                         ratio=None) -> torch.Tensor:
     """x (..., D) -> (..., D*(1+2*multires)): [x, sin(2^0 x), cos(2^0 x), ...],

@@ -158,12 +158,12 @@ def _wrap_fk(monkeypatch, wrapper):
             monkeypatch.setattr(mod, "fk_transforms", wrapped)
 
 
-@pytest.mark.parametrize("dct_weight, n_fk", [(None, 4), (0.0, 3)])
+@pytest.mark.parametrize("dct_weight, n_fk", [(None, 5), (0.0, 4)])
 def test_a_step_runs_one_fk_per_pass(tmp_path, monkeypatch, dct_weight,
                                      n_fk):
-    """geom, inner (its deform and the consistency term), outer (the solve,
-    the IFT correction and the Jacobian) and the DCT windows: 4 FKs, 3
-    without the DCT prior."""
+    """geom, inner (its deform and the consistency term), the outer pass's
+    prelude (the solve, detached) and body (the IFT correction and the
+    Jacobian) and the DCT windows: 5 FKs, 4 without the DCT prior."""
     tr, ds = _trainer(tmp_path)
     assert tr.stage_cfg.weights.dct_weight > 0.0
     assert tr.stage_cfg.weights.def_consistent_weight > 0.0
@@ -184,9 +184,9 @@ def test_a_step_runs_one_fk_per_pass(tmp_path, monkeypatch, dct_weight,
     assert np.isfinite(info["loss"])
     assert len(calls) == n_fk, calls
     N, Nw = tr.stage_cfg.N, tr.stage_cfg.window
-    assert calls[:3] == [N, N, N]          # the passes' poses
-    if n_fk == 4:
-        assert calls[3] == N * Nw          # the DCT windows
+    assert calls[:4] == [N, N, N, N]       # the passes' poses
+    if n_fk == 5:
+        assert calls[4] == N * Nw          # the DCT windows
 
 
 def _with_normals(scene, H, W):
@@ -204,9 +204,11 @@ def _with_normals(scene, H, W):
 @pytest.mark.cuda
 def test_no_sync_from_the_outer_pass_to_the_readback(tmp_path, monkeypatch):
     """The second step of a fine stage (the first captured the solve's
-    graph and learnt the update's flags) under
+    and the outer pass's graphs and learnt the update's flags) under
     ``torch.cuda.set_sync_debug_mode("error")`` from the outer pass's start
-    to the step's readback, and around every FK: a sync there raises."""
+    to the step's readback, and around every FK: a sync there raises.  The
+    outer pass's body replays its graph there, so the FKs that run on the
+    host are the geom pass's, the inner pass's and the solve's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run this file on the card as its "
                     "docstring says)")
@@ -252,11 +254,13 @@ def test_no_sync_from_the_outer_pass_to_the_readback(tmp_path, monkeypatch):
     monkeypatch.setattr(trace, "span", Span)
     monkeypatch.setattr(trace, "tolist", tolist)
     checking["on"] = True
+    trace.read_and_clear()
     try:
         info = _step(tr, ds, 1)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert checking == {"on": True, "outer": 1, "fk": 4}
+    assert checking == {"on": True, "outer": 1, "fk": 3}
+    assert trace.read_and_clear()["counters"]["outer_graph_replays"] == 1
     assert np.isfinite(info["loss"]) and "normal_loss" in info
 
 

@@ -244,6 +244,11 @@ def test_trace_report_line():
     assert trace_report(3, {"spans": spans, "counters": graphs,
                             "device": {}}).endswith(
         "host_syncs 4.5 per step; solve graph captures 1, replays 1")
+    graphs.update(outer_graph_captures=1, outer_graph_replays=2)
+    assert trace_report(3, {"spans": spans, "counters": graphs,
+                            "device": {}}).endswith(
+        "solve graph captures 1, replays 1; outer graph captures 1, "
+        "replays 2")
     assert trace_report(0, {"spans": [], "counters": {}, "device": {}}) == \
         "trace epoch 0: no step"
 
