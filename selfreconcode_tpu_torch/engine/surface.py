@@ -29,17 +29,17 @@ caller computes (``surface_points`` takes them; the solve reads them
 detached).  ``surface_points`` is the solve (``solve_surface``: the points,
 their converged mask and B) followed by the correction (``ift_points``);
 the training step calls the two apart, the correction inside the outer
-pass's CUDA graph.  In training on the card (CUDA tensors,
-Newton, no early exit, grad enabled) the fixed-count Newton loop is one
-CUDA graph, captured at the first solve of its shapes and replayed at every
-later one (``_NewtonGraph``): the loop is thousands of small kernels that
-the host would otherwise launch one by one.  Everywhere else (the CPU,
-inference's early exit, the Cauchy step) the same loop runs eagerly.
+pass's CUDA graph.  ``solve_surface`` takes a ``graphs.GraphCache``, which
+the training step hands it on the card: the fixed-count Newton loop is
+then one CUDA graph, captured at the first solve of its shapes and
+replayed at every later one, since the loop is thousands of small kernels
+that the host would otherwise launch one by one.  Without a cache (the
+CPU, inference with its early exit, ``surface_points``) and in the Cauchy
+step the same loop runs eagerly.
 """
 from __future__ import annotations
 
 import math
-from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
@@ -158,81 +158,27 @@ def _newton_loop(nets, cfg: SurfaceConfig, init_pts, batch_inds, **det):
     return pts, done, B, torch.stack(dones + [done])
 
 
-class _NewtonGraph:
-    """``_newton_loop`` captured as one CUDA graph on static input buffers.
-    The graph reads the nets' parameters and the skinner's tables where
-    they are, so in-place updates (Adam, ``copy_``) reach it; its key in
-    ``_GRAPHS`` holds their addresses, so new storage captures anew."""
-
-    def __init__(self, nets, cfg: SurfaceConfig, inputs: dict):
-        self.inputs = {k: v.clone() for k, v in inputs.items()}
-        # warm-up on a side stream: the autograd engine's device thread,
-        # cuBLAS's handles and workspaces exist before the capture
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            _newton_loop(nets, cfg, **self.inputs)
-        torch.cuda.current_stream().wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.outputs = _newton_loop(nets, cfg, **self.inputs)
-        trace.count("solve_graph_captures")
-
-    def replay(self, inputs: dict):
-        """The loop's outputs on `inputs`, copied out of the graph's
-        buffers."""
-        for k, v in inputs.items():
-            self.inputs[k].copy_(v)
-        self.graph.replay()
-        return tuple(t.clone() for t in self.outputs)
-
-
-# The captured solves, least recently used first.  A training run holds
-# one per stage's shapes; the bound frees the graphs of nets gone by.
-_GRAPHS: "OrderedDict[tuple, _NewtonGraph]" = OrderedDict()
-_MAX_GRAPHS = 4
-
-
-def _graph_key(nets, cfg: SurfaceConfig, inputs: dict) -> tuple:
-    """What a captured loop depends on besides its input buffers' values:
-    their shapes and dtypes (ray and frame counts), the device, the solve's
-    constants, the switches that choose its kernels (TF32, deterministic
-    algorithms), and the address and shape of every tensor the graph reads
-    in place."""
-    sdf_net, translator, skinner = nets
-    read = [*sdf_net.parameters(), *translator.parameters(), skinner.ws,
-            skinner.b_min, skinner.b_max]
-    return (cfg, str(next(iter(inputs.values())).device),
-            torch.backends.cuda.matmul.allow_tf32,
-            torch.are_deterministic_algorithms_enabled(),
-            tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()),
-            tuple((t.data_ptr(), tuple(t.shape)) for t in read))
-
-
 def _newton(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, det, init_pts,
-            batch_inds):
+            batch_inds, graphs=None):
     """The Newton loop on detached inputs: (pts, converged, B at pts, the
-    converged masks at each test).  The ratios enter as band weights on
-    the device, so that a graph replays them."""
-    sdf_net, translator, _ = nets
+    converged masks at each test), replayed from the ``GraphCache``
+    `graphs` if given.  The ratios enter as band weights on the device,
+    so that a graph replays them."""
+    sdf_net, translator, skinner = nets
     dev = init_pts.device
     inputs = dict(init_pts=init_pts.detach(), batch_inds=batch_inds, **det,
                   ratio_sdf=band_weights(sdf_net.multires, ratio_sdf, dev),
                   ratio_def=band_weights(translator.multires, ratio_def,
                                          dev))
-    if not (init_pts.is_cuda and not cfg.early_exit
-            and torch.is_grad_enabled()):
+    if graphs is None:
         return _newton_loop(nets, cfg, **inputs)
-    key = _graph_key(nets, cfg, inputs)
-    graph = _GRAPHS.pop(key, None)
-    if graph is None:
-        while len(_GRAPHS) >= _MAX_GRAPHS:
-            _GRAPHS.popitem(last=False)
-        graph = _NewtonGraph(nets, cfg, inputs)
-    else:
-        trace.count("solve_graph_replays")
-    _GRAPHS[key] = graph
-    return graph.replay(inputs)
+    if cfg.early_exit:
+        raise ValueError("the early exit reads back to the host: a graph "
+                         "cannot hold it")
+    return graphs.replay(
+        lambda x: _newton_loop(nets, cfg, **x), inputs,
+        reads=[*sdf_net.parameters(), *translator.parameters(), skinner.ws,
+               skinner.b_min, skinner.b_max], static=cfg)
 
 
 def _cauchy(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, det, init_pts,
@@ -268,7 +214,7 @@ def _cauchy(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, det, init_pts,
 
 
 def _solve(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond, A, trans,
-           rays, cam_c, init_pts, batch_inds):
+           rays, cam_c, init_pts, batch_inds, graphs=None):
     """The surface solve by the solver cfg names, without a gradient, at
     the poses' FK transforms A: (pts, converged, B at pts or None, the
     detached inputs).  Records the converged counts at each test
@@ -277,7 +223,7 @@ def _solve(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond, A, trans,
         det = _detached(dcond, A, trans, rays, cam_c)
         if cfg.newton:
             pts, done, B, dones = _newton(nets, cfg, ratio_sdf, ratio_def,
-                                          det, init_pts, batch_inds)
+                                          det, init_pts, batch_inds, graphs)
         else:
             pts, done, dones = _cauchy(nets, cfg, ratio_sdf, ratio_def, det,
                                        init_pts, batch_inds)
@@ -297,12 +243,15 @@ def optimize_surface_points(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def,
 
 
 def solve_surface(nets, cfg: SurfaceConfig, ratio_sdf, ratio_def, dcond, A,
-                  trans, rays, cam_c, init_pts, batch_inds):
+                  trans, rays, cam_c, init_pts, batch_inds, graphs=None):
     """The surface solve without a gradient, at the poses' FK transforms A:
     (pts (N,3), converged mask (N,), B = dF/dp at pts (N,4,3)), what
-    ``ift_points`` attaches the gradient with."""
+    ``ift_points`` attaches the gradient with.  Newton replays from the
+    ``graphs.GraphCache`` `graphs` if given (CUDA tensors, no early exit);
+    Cauchy runs eagerly."""
     pts, done, B, det = _solve(nets, cfg, ratio_sdf, ratio_def, dcond, A,
-                               trans, rays, cam_c, init_pts, batch_inds)
+                               trans, rays, cam_c, init_pts, batch_inds,
+                               graphs)
     if B is None:
         B = _constraint_and_B(nets, pts, batch_inds, ratio_sdf=ratio_sdf,
                               ratio_def=ratio_def, **det)[1]

@@ -30,7 +30,6 @@ import dataclasses
 import os
 import os.path as osp
 import time
-from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -60,6 +59,7 @@ from ..utils.math import (dct_null_space, gm_robust, inv3x3,
 from ..utils.pe import band_weights
 from ..utils.sampling import sample_points, subsample_mask_topk
 from . import losses as L
+from .graphs import GraphCache
 from .surface import (SurfaceConfig, ift_points, solve_surface,
                       surface_inits_from_fragments)
 
@@ -279,46 +279,9 @@ def fragment_seeds(cam: Camera, verts: torch.Tensor, faces: torch.Tensor,
 # The training step
 # ---------------------------------------------------------------------------
 
-class _OuterGraph:
-    """``body(inputs)``, a forward that ends in its ``backward()`` into the
-    leaves' .grad, captured as one CUDA graph on static input buffers.  The
-    graph adds into each leaf's .grad where it is (``zero_grad(set_to_none=
-    False)`` keeps it there) and reads the parameters where they are, so
-    in-place updates reach it.  The warm-up on a side stream leaves every
-    .grad as it found it; a leaf that had none and that the body gives one
-    gets a zero .grad, so that the capture adds into it too."""
-
-    def __init__(self, body, inputs: dict, leaves):
-        self.inputs = {k: v.clone() for k, v in inputs.items()}
-        before = [None if p.grad is None else p.grad.clone() for p in leaves]
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            body(self.inputs)
-        torch.cuda.current_stream().wait_stream(side)
-        for p, g in zip(leaves, before):
-            if g is not None:
-                p.grad.copy_(g)
-            elif p.grad is not None:
-                p.grad = torch.zeros_like(p)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.outputs = body(self.inputs)
-        trace.count("outer_graph_captures")
-
-    def replay(self, inputs: dict):
-        """The body's outputs on `inputs`, copied out of the graph's
-        buffers; the leaves' .grad hold its gradients."""
-        for k, v in inputs.items():
-            self.inputs[k].copy_(v)
-        self.graph.replay()
-        total, info = self.outputs
-        return total.clone(), {k: v.clone() for k, v in info.items()}
-
-
-# A step function holds one graph per shapes of its outer pass; the bound
-# frees the graphs of shapes or storage gone by.
-_MAX_OUTER_GRAPHS = 2
+# The surface solve's CUDA graphs serve every step function of the process:
+# a training run holds one per stage's shapes.
+_SOLVE_CACHE = GraphCache("solve_graph", 4)
 
 
 # every key a step's info may hold (the step sums their values over the
@@ -350,10 +313,11 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
 
     The outer pass is a prelude and a body (``outer_prelude``,
     ``outer_terms`` and its backward): the prelude solves for the surface
-    points and takes what a remesh resizes; the body, which reads only
-    device tensors of fixed shapes, is on the card without a process group
-    one CUDA graph, captured at the step function's first step and
-    replayed at every later one.
+    points and takes what a remesh resizes; the body reads only device
+    tensors of fixed shapes.  ``graph_caches`` alone decides what replays
+    as a CUDA graph (``graphs.GraphCache``), captured at the step
+    function's first step and replayed at every later one: on the card the
+    solve's Newton loop, and without a process group the body.
 
     The geom pass, the inner pass (its deform and the consistency term)
     and the DCT windows each run the poses' forward kinematics once; the
@@ -377,6 +341,18 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
     # the update's flags, learnt at the first step: "grad" and "present"
     # (agreed over ranks) and this rank's own info keys, "keys"
     agreed = {}
+    # the body's graphs: one while the stage's shapes and storage hold (the
+    # stage's configuration is this step function's own)
+    body_graphs = GraphCache("outer_graph", 2)
+
+    def graph_caches(dev):
+        """The caches the step replays through on `dev`, (the solve's, the
+        outer body's); None runs that part eagerly, as on the CPU.  Under a
+        process group (of any size) the body all-reduces and gathers rows,
+        which reads counts back to the host: it runs eagerly there."""
+        if dev.type != "cuda":
+            return None, None
+        return _SOLVE_CACHE, None if dist.is_initialized() else body_graphs
 
     def frame_params(bank, fids):
         poses, trans = bank["poses"][fids], bank["trans"][fids]
@@ -482,8 +458,9 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
                       ray_rows, ray_cols, ray_binds, windows, ratios, draws):
         """The outer pass up to its loss terms, without a gradient: the
         surface solve at the camera and the poses' FK, both detached (its
-        own span, and on the card its own graph), the template's two
-        subsamples (sized by the template, which a remesh resizes) and the
+        own span, and its graph where ``graph_caches`` gives one), the
+        template's two subsamples (sized by the template, which a remesh
+        resizes) and the
         ratios' band weights.  Returns ``outer_terms``' inputs: device
         tensors only, whose shapes a remesh leaves as they are while the
         template has more than cfg.anchor_sub vertices."""
@@ -509,7 +486,8 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
                 averts, avalid = new_verts, valid_v
         pts, done, B = solve_surface(surf_nets, surf_cfg, w_sdf, w_def,
                                      dcond, A, trans, rays, cam_pos(cam),
-                                     init_pts, ray_binds)
+                                     init_pts, ray_binds,
+                                     graph_caches(dev)[0])
         return dict(gtCs=gtCs, gtNs=gtNs, fids=fids, windows=windows,
                     sel_ok=sel_ok, ray_rows=ray_rows, ray_cols=ray_cols,
                     ray_binds=ray_binds, pts=pts, done=done, B=B,
@@ -648,62 +626,25 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
         """``outer_terms``, then its backward into the leaves' .grad:
         (total, info), detached."""
         total, info = outer_terms(bank, x)
-        with trace.span("step.outer.backward"):
-            total.backward()
+        total.backward()
         return total.detach(), {k: v.detach() for k, v in info.items()}
-
-    # the body's CUDA graphs, least recently used first: one while the
-    # stage's shapes and storage hold (the stage's configuration is this
-    # step function's own)
-    graphs: "OrderedDict[tuple, _OuterGraph]" = OrderedDict()
-
-    def graph_leaves(bank):
-        """Every tensor whose .grad the body may add to."""
-        out = {id(p): p for g in optimizer.param_groups for p in g["params"]}
-        out.update((id(v), v) for v in bank.values())
-        return list(out.values())
-
-    def graph_key(x, leaves) -> tuple:
-        """What a captured body depends on besides its input buffers'
-        values: their shapes and dtypes, the switches that choose its
-        kernels, and the address and shape of every tensor it reads or
-        writes in place (a new storage captures anew)."""
-        read = [*leaves, *(p.grad for p in leaves), *skinner_tensors,
-                dctnull_dev]
-        return (torch.backends.cuda.matmul.allow_tf32,
-                torch.are_deterministic_algorithms_enabled(),
-                tuple((k, tuple(v.shape), v.dtype) for k, v in x.items()),
-                tuple(None if t is None else (t.data_ptr(), tuple(t.shape))
-                      for t in read))
-
-    def graphed_body(bank, x):
-        """``outer_body`` as a replay of its graph for x's shapes, captured
-        first where there is none."""
-        leaves = graph_leaves(bank)
-        key = graph_key(x, leaves)
-        graph = graphs.pop(key, None)
-        if graph is None:
-            while len(graphs) >= _MAX_OUTER_GRAPHS:
-                graphs.popitem(last=False)
-            graph = _OuterGraph(lambda xs: outer_body(bank, xs), x, leaves)
-            # the capture gave a .grad to each leaf that the body adds to
-            key = graph_key(x, leaves)
-        else:
-            trace.count("outer_graph_replays")
-        graphs[key] = graph
-        return graph.replay(x)
 
     def outer_pass(*args):
         """The outer pass and its backward into the leaves' .grad: the
-        prelude, then the body, on the card a replay of its CUDA graph.
-        Under a process group (of any size) the body all-reduces and
-        gathers rows, which reads counts back to the host: it runs
-        eagerly there, as on the CPU."""
+        prelude, then the body, a replay of its CUDA graph where
+        ``graph_caches`` gives one."""
+        bank = args[0]
         with trace.span("step.outer"):
             x = outer_prelude(*args)
-            if x["pts"].is_cuda and not dist.is_initialized():
-                return graphed_body(args[0], x)
-            return outer_body(args[0], x)
+            graphs = graph_caches(x["pts"].device)[1]
+            if graphs is None:
+                return outer_body(bank, x)
+            # every tensor whose .grad the body may add to, once
+            leaves = dict.fromkeys([p for g in optimizer.param_groups
+                                    for p in g["params"]] + [*bank.values()])
+            return graphs.replay(lambda xs: outer_body(bank, xs), x,
+                                 reads=[*skinner_tensors, dctnull_dev],
+                                 leaves=list(leaves))
 
     def ray_pixels(idx):
         """(frame, row, column) of each selected pixel id."""
@@ -800,6 +741,7 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
     step.outer_body = outer_body
     step.outer_pass = outer_pass
     step.ray_pixels = ray_pixels
+    step.graph_caches = graph_caches
     return step
 
 

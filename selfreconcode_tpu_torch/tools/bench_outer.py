@@ -4,8 +4,8 @@ backward and the Adam update, each timed as ``profile_step.timed`` times
 a pass (wall, span, busy).  The trainer is ``profile_step``'s (the
 synthetic trainer at the production octree resolutions, remeshed).
 
-  surface solve        ``surface_points`` alone (Newton or Cauchy, the IFT
-                       correction built);
+  surface solve        ``solve_surface`` as the step runs it (on the card
+                       a graph replay), then the IFT correction;
   surface solve + IFT  the same, then the backward of sum(pts);
   loss forward         ``outer_loss``: the solve and every loss term,
                        eagerly;
@@ -46,7 +46,7 @@ def main(argv=None, resolutions=None, tune=None) -> dict:
     """Entry point; returns {part: timed dict} (backward: the difference).
     resolutions and tune(trainer) are test hooks, as in profile_step."""
     from ..cli.train import open_device
-    from ..engine.surface import SurfaceConfig, surface_points
+    from ..engine.surface import SurfaceConfig, ift_points, solve_surface
     from ..engine.trainer import camera_from_bank
     from ..models.skinner import fk_transforms
     from ..render.camera import cam_pos, view_rays
@@ -59,6 +59,7 @@ def main(argv=None, resolutions=None, tune=None) -> dict:
     step, cfg, nets = tr._get_step_fn(), tr.stage_cfg, tr.nets
     (bank, _, _, _, fids, init_pts, _, rows, cols, binds, _, ratios,
      _) = outer_args
+    surf_nets = (nets.sdf, nets.translator, tr.skinner)
     surf_cfg = SurfaceConfig(n_iters=cfg.surf_iters,
                              athreshold_deg=tr.ang_thresh,
                              newton=cfg.surf_newton)
@@ -67,12 +68,12 @@ def main(argv=None, resolutions=None, tune=None) -> dict:
         cam = camera_from_bank(bank, cfg.H, cfg.W, cfg)
         pix = torch.stack([cols.float(), rows.float(),
                            torch.ones(rows.shape[0], device=dev)], dim=-1)
-        return surface_points(
-            (nets.sdf, nets.translator, tr.skinner), surf_cfg, ratios[0],
-            ratios[1], bank["dcond"][fids],
-            fk_transforms(tr.skinner, bank["poses"][fids])[0],
-            bank["trans"][fids], view_rays(cam, pix), cam_pos(cam),
-            init_pts, binds)
+        theta = (*ratios[:2], bank["dcond"][fids],
+                 fk_transforms(tr.skinner, bank["poses"][fids])[0],
+                 bank["trans"][fids], view_rays(cam, pix), cam_pos(cam))
+        pts, done, B = solve_surface(surf_nets, surf_cfg, *theta, init_pts,
+                                     binds, step.graph_caches(dev)[0])
+        return ift_points(surf_nets, *theta, binds, pts, done, B), done
 
     def solve_ift():
         tr.optimizer.zero_grad(set_to_none=False)

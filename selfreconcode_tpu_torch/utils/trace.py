@@ -17,13 +17,12 @@ tracing off and no profiler running a span stores nothing and enters no
 ``record_function``.
 
 Host counters: ``host_syncs`` (each host read of the device), the kernels'
-launch counts, the surface solve's CUDA graph (``engine/surface.py``):
-``solve_graph_captures`` (a capture, at a solve of new shapes) and
+launch counts, and the CUDA graphs' (``engine/graphs.py``) of the surface
+solve, ``solve_graph_captures`` (a capture, at a solve of new shapes) and
 ``solve_graph_replays`` (a solve that replayed a graph captured earlier),
-and the outer pass's body's (``engine/trainer.py``):
-``outer_graph_captures`` (a capture, at a step function's first step and
-at new shapes or storage) and ``outer_graph_replays`` (a step that
-replayed a graph captured earlier).
+and of the outer pass's body, ``outer_graph_captures`` (a capture, at a
+step function's first step and at new shapes or storage) and
+``outer_graph_replays`` (a step that replayed a graph captured earlier).
 
 A device counter is a row of sums of device tensors, kept on the device and
 copied to the host by the training step's readback (``tolist``), so tracing

@@ -10,15 +10,19 @@ Between the replays the rays, start points, poses and both annealing
 ratios (unsaturated) change and an Adam step moves the nets in place; a
 graph that had fixed any of them at its capture would drift from the
 eager loop.  The graph runs the eager loop's kernels, so the two are
-expected to agree bit for bit; the test allows 1e-6.
+expected to agree bit for bit; the test allows 1e-6.  The solve replays
+only where it is handed a cache (``engine/graphs.py``), as the training
+step hands it one on the card.
 """
 import numpy as np
 import pytest
 import torch
 
 from selfreconcode_tpu_torch.engine import surface as SURF
+from selfreconcode_tpu_torch.engine.graphs import GraphCache
 from selfreconcode_tpu_torch.engine.surface import (SurfaceConfig,
-                                                    optimize_surface_points)
+                                                    optimize_surface_points,
+                                                    solve_surface)
 from selfreconcode_tpu_torch.models.deformer import deformer_apply
 from selfreconcode_tpu_torch.models.sdf import SDFNet
 from selfreconcode_tpu_torch.models.skinner import build_skinner, fk_transforms
@@ -64,14 +68,19 @@ def solve_inputs(nets, n_rays, seed, dev):
     return leaves, init, binds
 
 
-def newton(nets, cfg, ratios, leaves, init, binds):
-    """``_newton`` as the step calls it, on the FK of the leaves' poses."""
+def theta(nets, leaves):
+    """The solve's (dcond, A, trans, rays, cam_c), A the FK of the leaves'
+    poses."""
+    return (leaves["dcond"], fk_transforms(nets[2], leaves["poses"])[0],
+            leaves["trans"], leaves["rays"], leaves["cam_c"])
+
+
+def newton(nets, cfg, ratios, leaves, init, binds, graphs=None):
+    """``_newton`` as the step calls it, replayed in `graphs` (None:
+    eagerly)."""
     return SURF._newton(nets, cfg, *ratios,
-                        SURF._detached(
-                            leaves["dcond"],
-                            fk_transforms(nets[2], leaves["poses"])[0],
-                            leaves["trans"], leaves["rays"], leaves["cam_c"]),
-                        init, binds)
+                        SURF._detached(*theta(nets, leaves)), init, binds,
+                        graphs)
 
 
 def graph_counters():
@@ -90,14 +99,13 @@ def test_graphed_newton_solve_equals_the_eager_loop():
     opt = torch.optim.Adam([*nets[0].parameters(), *nets[1].parameters()],
                            lr=1e-3)
     cfg = SurfaceConfig(n_iters=10)
-    SURF._GRAPHS.clear()
+    graphs = GraphCache("solve_graph", 4)
     trace.read_and_clear()
     for step in range(4):               # a capture, then three replays
         ratios = (0.6 + 0.05 * step, 0.5 + 0.07 * step)
         leaves, init, binds = solve_inputs(nets, 512, step, dev)
-        graphed = newton(nets, cfg, ratios, leaves, init, binds)
-        with torch.no_grad():           # no grad: the eager loop
-            eager = newton(nets, cfg, ratios, leaves, init, binds)
+        graphed = newton(nets, cfg, ratios, leaves, init, binds, graphs)
+        eager = newton(nets, cfg, ratios, leaves, init, binds)
         assert bool(eager[1].any()) and not bool(eager[3][0].all())
         for name, g, e in zip(("pts", "done", "B", "dones"), graphed, eager):
             if g.dtype == torch.bool:
@@ -113,22 +121,30 @@ def test_graphed_newton_solve_equals_the_eager_loop():
         loss.backward()
         opt.step()
     assert graph_counters() == (1, 3)
-    # tracing on: the converged counts are read from the replay's outputs
+    # tracing on, through the step's entry point: the converged counts are
+    # read from the replay's outputs
     leaves, init, binds = solve_inputs(nets, 512, 9, dev)
-    args = (*(leaves[k] for k in LEAVES), init, binds)
     trace.enable()
     try:
-        optimize_surface_points(nets, cfg, 0.7, 0.8, *args)
+        solve_surface(nets, cfg, 0.7, 0.8, *theta(nets, leaves), init, binds,
+                      graphs)
         rows = trace.read_and_clear()["device"]["solve_converged"]
     finally:
         trace.disable()
-    with torch.no_grad():
-        dones = newton(nets, cfg, (0.7, 0.8), leaves, init, binds)[3]
+    dones = newton(nets, cfg, (0.7, 0.8), leaves, init, binds)[3]
     assert rows == [dones.sum(1).tolist()]
-    # another ray count captures again; early exit and Cauchy stay eager
+    # another ray count captures again; Cauchy stays eager with a cache,
+    # and inference (no cache, early exit or not) too; a cache with the
+    # early exit, which reads back to the host, is refused
     leaves, init, binds = solve_inputs(nets, 384, 10, dev)
     args = (*(leaves[k] for k in LEAVES), init, binds)
-    for other in (cfg, SurfaceConfig(n_iters=10, early_exit=True),
-                  SurfaceConfig(n_iters=10, newton=False)):
+    early = SurfaceConfig(n_iters=10, early_exit=True)
+    for other in (cfg, SurfaceConfig(n_iters=10, newton=False)):
+        solve_surface(nets, other, 0.7, 0.8, *theta(nets, leaves), init,
+                      binds, graphs)
+    for other in (cfg, early):
         optimize_surface_points(nets, other, 0.7, 0.8, *args)
+    with pytest.raises(ValueError, match="early exit"):
+        solve_surface(nets, early, 0.7, 0.8, *theta(nets, leaves), init,
+                      binds, graphs)
     assert graph_counters() == (1, 0)

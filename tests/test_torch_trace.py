@@ -18,10 +18,8 @@ from selfreconcode_tpu_torch.utils import trace
 RES = {s: [(9, 9, 9), (17, 17, 17)] for s in ("coarse", "medium", "fine")}
 SURF_ITERS = 3
 STEP_SPANS = ("train_step", "step.feed", "step.geom", "step.inner",
-              "step.outer", "step.outer.solve", "step.outer.backward",
-              "step.update")
-PARENT = {"step.outer.solve": "step.outer",
-          "step.outer.backward": "step.outer", "remesh.sweep": "remesh",
+              "step.outer", "step.outer.solve", "step.update")
+PARENT = {"step.outer.solve": "step.outer", "remesh.sweep": "remesh",
           "remesh.mc": "remesh", "train_step": None}
 
 
