@@ -123,7 +123,10 @@ Phases:
      shape R (50k splats each at distance r from a pixel centre, where the
      backward's coefficient jumps: the kernels must round w as the plain
      version does), and the dense-cell forms at shape B's bins laid out
-     densely.  Each kernel runs twice and must give the same bits;
+     densely.  Each kernel runs twice and must give the same bits; the
+     forward's two launches (the chunks, then the merge of cells that
+     cross a chunk edge) are also timed apart (``fwd_chunks_us``,
+     ``fwd_merge_us``: torch.profiler's kernel time of 20 calls);
   6. mesh kernel vs plain on the card at shape C (phase 4's template, the
      remesh of the trained SDF, deformed into frame 0 at 512x512 as the
      geometry pass deforms it), shape C-dup (C's faces twice over: every
@@ -325,6 +328,23 @@ def device_cold_us(call, n=50):
     return statistics.median(a.elapsed_time(b) * 1e3 for a, b in ev)
 
 
+def kernels_us(call, n=20):
+    """Device us per call of each kernel that one raw call launches (the
+    forward's chunk and merge kernels apart): the self device time of
+    torch.profiler's CUDA kernel events over n calls, by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn, args = call[:2]
+    check_err(fn(*args))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        errs = [fn(*args) for _ in range(n)]
+        torch.cuda.synchronize()
+    check_err(max(errs))
+    return {e.key: e.self_device_time_total / n for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def check_err(err):
     if err != 0:
         raise RuntimeError(f"raw launch returned cudaError_t {err}")
@@ -374,8 +394,9 @@ def splat_bounds(work, M, n_cells, fused):
     """Bounds of the timed forward and backward launches at one shape, from
     what they must touch.  The zero fills of the output image and of the
     slot gradients are torch's, before the launch, and count for neither.
-    Forward: reads the distinct points, the M entries and their cells and
-    the n_cells per-cell arrays, and writes the active cells' pixels (with
+    Forward: reads the distinct points, the M valid entries and their cells
+    and the n_cells cells' run starts and lengths, and writes the active
+    cells' pixels (with
     1 - exp(acc) on each when fused).  Backward: reads the points, entries
     and entry cells, and on the active cells' pixels the mask's gradient
     and the mask (fused: it forms -g (1 - mask) there) or the cotangent,
@@ -384,7 +405,7 @@ def splat_bounds(work, M, n_cells, fused):
     ins = 8 * work["points"] + 8 * M
     fwd = bound_us(OPS_PAIR * work["bbox_pairs"]
                    + OPS_LOG1P * work["fwd_hits"] + fused * OPS_EXP * px,
-                   ins + 12 * n_cells + 4 * px)
+                   ins + 8 * n_cells + 4 * px)
     bwd = bound_us(OPS_PAIR * work["bbox_pairs"]
                    + OPS_BWD_HIT * work["bwd_hits"] + fused * OPS_COT * px,
                    ins + (8 if fused else 4) * px + 8 * M)
@@ -410,8 +431,8 @@ def compare_kernels(label, cam, pts, radius, seed, screen=None):
                        splat_cell_size(r_pix, 9))
         r2_inv = 1.0 / float(r_pix * r_pix)
         n = col.shape[0]
-        fargs = (col, row, b.entries, b.ecell, b.cell_ids, b.starts,
-                 b.counts, b.cs, b.ncx, H, W, r2_inv)
+        fargs = (col, row, b.entries, b.ecell, b.count, b.starts, b.counts,
+                 b.cs, b.ncx, H, W, r2_inv)
         gen = torch.Generator(device=s.device).manual_seed(seed)
         g_img = torch.randn((H, W), generator=gen, device=s.device)
 
@@ -419,8 +440,8 @@ def compare_kernels(label, cam, pts, radius, seed, screen=None):
         mask_p = SK.splat_fwd_plain(*fargs)
         acc_k = SK.splat_fwd(*fargs, to_mask=False)
         acc_p = SK.splat_fwd_plain(*fargs, to_mask=False)
-        bargs = (col, row, b.entries, b.ecell, g_img, mask_k, b.cs, b.ncx,
-                 r2_inv, 4 * n)
+        bargs = (col, row, b.entries, b.ecell, b.count, g_img, mask_k, b.cs,
+                 b.ncx, r2_inv, 4 * n)
         g_k = SK.splat_bwd(*bargs)
         g_p = SK.splat_bwd_plain(*bargs)
         same = (torch.equal(mask_k, SK.splat_fwd(*fargs)),
@@ -433,21 +454,27 @@ def compare_kernels(label, cam, pts, radius, seed, screen=None):
         gk, gp = (g.reshape(4, n, 2).sum(0) for g in (g_k, g_p))
         gmax = float(gp.abs().max())
         bwd_err = float((gk - gp).abs().max())
-        work = splat_work(col, row, b.entries, b.cell_ids, b.counts, b.cs,
+        m = int(b.count)
+        cells = torch.arange(b.counts.numel(), device=s.device)
+        work = splat_work(col, row, b.entries[:m], cells, b.counts, b.cs,
                           b.ncx, r2_inv, H, W)
-        (fb, fby), (bb, bby) = splat_bounds(
-            work, b.entries.numel(), b.cell_ids.numel(), fused=True)
+        (fb, fby), (bb, bby) = splat_bounds(work, m, cells.numel(),
+                                            fused=True)
         fcall, bcall = SK.fwd_call(*fargs), SK.bwd_call(*bargs)
+        split = kernels_us(fcall)
         out = {
-            "shape": label, "n_pts": int(s.shape[0]),
-            "entries": int(b.entries.numel()),
-            "active_cells": int(b.cell_ids.numel()),
+            "shape": label, "n_pts": int(s.shape[0]), "entries": m,
+            "slots": int(b.entries.numel()),
+            "active_cells": int((b.counts > 0).sum()),
             "max_occupancy": int(b.counts.max()), **work,
             "fwd_max_err": fwd_err, "mask_max_abs_err": mask_err,
             "bwd_max_abs_err": bwd_err,
             "bwd_max_abs_g": gmax, "bit_identical": same,
             "fwd_device_us": device_us(fcall),
             "fwd_device_cold_us": device_cold_us(fcall),
+            "fwd_chunks_us": sum(v for k, v in split.items()
+                                 if "merge" not in k),
+            "fwd_merge_us": sum(v for k, v in split.items() if "merge" in k),
             "fwd_wrapper_ms": wrapper_ms(lambda: SK.fwd(*fargs)),
             "fwd_plain_ms": wrapper_ms(lambda: SK.splat_fwd_plain(*fargs)),
             "fwd_bound_us": fb, "fwd_bound_by": fby,
@@ -488,13 +515,15 @@ def compare_dense(label, cam, pts, radius, seed):
         valid = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
         b = splat_bins(s[:, 0], s[:, 1], s[:, 2], valid, r_pix, H, W,
                        splat_cell_size(r_pix, 9))
-        C = (b.hp // b.cs) * b.ncx
+        C = b.counts.numel()
         cap = -(-int(b.counts.max()) // 64) * 64
         counts = b.counts.long()
-        cell = torch.repeat_interleave(b.cell_ids.long(), counts)
-        slot = (torch.arange(b.entries.numel(), device=pts.device)
+        m = int(b.count)
+        cell = torch.repeat_interleave(
+            torch.arange(C, device=pts.device), counts)
+        slot = (torch.arange(m, device=pts.device)
                 - torch.repeat_interleave(b.starts.long(), counts))
-        p = b.entries.long() % pts.shape[0]
+        p = b.entries[:m].long() % pts.shape[0]
         dense = torch.full((C, 2, cap), SK.BIG, device=pts.device)
         dense[cell, 0, slot] = s[p, 0]
         dense[cell, 1, slot] = s[p, 1]
@@ -517,17 +546,17 @@ def compare_dense(label, cam, pts, radius, seed):
         same = (torch.equal(acc_k, SK.splat_fwd_cells(dense, *args)),
                 torch.equal(g_k, SK.splat_bwd_cells(dense, cot, *args)))
         # the timed launches read the compacted bins, never the dense slots
-        col_d, row_d, ent_d, _, cells_d, _, counts_d = bins
-        work = splat_work(col_d, row_d, ent_d, cells_d, counts_d, b.cs, b.ncx,
-                          r2_inv, hp, wp)
+        col_d, row_d, ent_d, _, _, _, counts_d = bins
+        work = splat_work(col_d, row_d, ent_d,
+                          torch.arange(C, device=pts.device), counts_d, b.cs,
+                          b.ncx, r2_inv, hp, wp)
         (fb, fby), (bb, bby) = splat_bounds(work, ent_d.numel(), C,
                                             fused=False)
         fcall = SK.fwd_call(*bins, b.cs, b.ncx, hp, wp, r2_inv, to_mask=False)
-        bcall = SK.bwd_call(*bins[:4], cot_img, None, b.cs, b.ncx, r2_inv,
+        bcall = SK.bwd_call(*bins[:5], cot_img, None, b.cs, b.ncx, r2_inv,
                             C * cap)
         out = {
-            "shape": label, "cells": C, "cap": cap,
-            "filled_slots": int(b.entries.numel()), **work,
+            "shape": label, "cells": C, "cap": cap, "filled_slots": m, **work,
             "fwd_max_err": fwd_err, "fwd_max_abs_err": fwd_abs,
             "bwd_max_abs_err": bwd_err, "bwd_max_abs_g": gmax,
             "bit_identical": same,

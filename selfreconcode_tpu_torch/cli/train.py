@@ -323,8 +323,9 @@ def trace_report(epoch: int, rec: dict) -> str:
     (``trace.read_and_clear``): per step, each span's ms as duration/self
     (in the order the spans first started), the host syncs, the graph
     captures and replays of the surface solve and of the outer pass's
-    body, and the mean converged rays of the solve before its first
-    iteration and after each."""
+    body, the mean converged rays of the solve before its first iteration
+    and after each, and the splat's mean valid entries a frame beside its
+    slots."""
     n = sum(s["name"] == "train_step" for s in rec["spans"])
     if not n:
         return f"trace epoch {epoch}: no step"
@@ -347,6 +348,11 @@ def trace_report(epoch: int, rec: dict) -> str:
     if rows:
         mean = np.mean(rows, axis=0)
         out += "; solve_converged " + " ".join(f"{v:.1f}" for v in mean)
+    rows = rec["device"].get("splat_entries", [])
+    if rows:
+        out += (f"; splat_entries {np.mean(rows):.1f} of "
+                f"{rec['counters'].get('splat_slots', 0) / len(rows):.1f} "
+                f"slots a frame")
     return out
 
 

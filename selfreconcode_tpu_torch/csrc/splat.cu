@@ -16,10 +16,16 @@
 // entry's id (ids are unique, so no atomics; the caller sums each point's
 // <= 4 entry slots in a fixed order).
 //
-// Both walk the sorted entry list of ops/rasterize.py::cell_bins: entry ids
-// grouped by cell in ascending cell order, with each entry's cell beside it.
-// An entry id is k * n_pts + point with k < 4 (ops/binning.py); the dense
-// form passes slot ids < n_pts (k = 0).  `decode` covers both without `%`.
+// Both walk the sorted slot list of ops/rasterize.py::splat_bins: entry ids
+// grouped by cell in ascending cell order, with each entry's cell beside it,
+// the valid entries first and their number in device memory (`count`).  The
+// list has a length the host knows without reading the device (4 slots a
+// point), which sizes the grids; a warp whose chunk starts at or past the
+// count returns at once, so the chunks, segments and partial sums are those
+// of the valid entries alone.  An entry id is k * n_pts + point with k < 4;
+// the dense form passes slot ids < n_pts (k = 0).  `decode` covers both
+// without `%`.  The per-cell tables (run starts and lengths) hold every cell
+// of the grid, empty ones with length 0.
 //
 // What bounds them on this card.  Little: at the fine stage's shape
 // (1080^2, r = 2.2 px, ~750k entries) the bytes (points, entries, the mask
@@ -133,13 +139,15 @@ __device__ __forceinline__ Box cell_box(float c, float r, int cx0, int cy0,
 __global__ void __launch_bounds__(kWarps * 32)
 splat_fwd_kernel(const float* __restrict__ col, const float* __restrict__ row,
                  int n_pts, const int* __restrict__ entries,
-                 const int* __restrict__ ecell, int m, int cs, int ncx,
-                 int out_h, int out_w, float r2_inv, float r_box, int to_mask,
-                 float* __restrict__ partial, float* __restrict__ out) {
+                 const int* __restrict__ ecell, const int* __restrict__ count,
+                 int cs, int ncx, int out_h, int out_w, float r2_inv,
+                 float r_box, int to_mask, float* __restrict__ partial,
+                 float* __restrict__ out) {
   __shared__ float2 s_cr[kWarps][kChunk];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int chunk = blockIdx.x * kWarps + warp;
+  const int m = *count;
   if (chunk * kChunk >= m) return;
   const Chunk ch = load_chunk(col, row, n_pts, entries, ecell, m, chunk, lane);
   s_cr[warp][lane] = make_float2(ch.c, ch.r);
@@ -206,26 +214,25 @@ splat_fwd_kernel(const float* __restrict__ col, const float* __restrict__ row,
 }
 
 // Cells that cross a chunk edge: add their chunks' partial sums in chunk
-// order.  One thread per (active cell, pixel).
-__global__ void splat_fwd_merge_kernel(const int* __restrict__ cell_ids,
-                                       const int* __restrict__ starts,
+// order.  One thread per (cell of the table, pixel); an empty cell and a
+// cell within one chunk were written already.
+__global__ void splat_fwd_merge_kernel(const int* __restrict__ starts,
                                        const int* __restrict__ counts,
-                                       int n_active, int cs, int ncx,
+                                       int n_cells, int cs, int ncx,
                                        int out_h, int out_w, int to_mask,
                                        const float* __restrict__ partial,
                                        float* __restrict__ out) {
   const int P = cs * cs;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int a = t / P;
-  if (a >= n_active) return;
-  const int k = t - a * P;
-  const int s = starts[a];
+  const int cell = t / P;
+  if (cell >= n_cells) return;
+  const int k = t - cell * P;
+  const int s = starts[cell];
   const int c0 = s / kChunk;
-  const int c1 = (s + counts[a] - 1) / kChunk;
+  const int c1 = (s + counts[cell] - 1) / kChunk;
   if (c1 <= c0) return;   // within one chunk (or empty): written already
   float acc = partial[(2 * c0 + (s == c0 * kChunk ? 0 : 1)) * P + k];
   for (int c = c0 + 1; c <= c1; ++c) acc += partial[2 * c * P + k];
-  const int cell = cell_ids[a];
   const int cy = cell / ncx;
   const int ly = k / cs;
   const int x = (cell - cy * ncx) * cs + k - ly * cs, y = cy * cs + ly;
@@ -236,8 +243,8 @@ __global__ void splat_fwd_merge_kernel(const int* __restrict__ cell_ids,
 __global__ void __launch_bounds__(kWarps * 32)
 splat_bwd_kernel(const float* __restrict__ col, const float* __restrict__ row,
                  int n_pts, const int* __restrict__ entries,
-                 const int* __restrict__ ecell, int m, int cs, int ncx, int h,
-                 int w_img, float r2_inv, float r_box,
+                 const int* __restrict__ ecell, const int* __restrict__ count,
+                 int cs, int ncx, int h, int w_img, float r2_inv, float r_box,
                  const float* __restrict__ g_img,
                  const float* __restrict__ mask_img,
                  float* __restrict__ g_slots) {
@@ -246,6 +253,7 @@ splat_bwd_kernel(const float* __restrict__ col, const float* __restrict__ row,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int chunk = blockIdx.x * kWarps + warp;
+  const int m = *count;
   if (chunk * kChunk >= m) return;
   const int P = cs * cs;
   const int stage = max(kStage, P);
@@ -316,46 +324,50 @@ extern "C" {
 // Entries per chunk; the plain version's chunk split must use the same.
 int srt_splat_chunk() { return kChunk; }
 
-// out: (out_h, out_w) float32 holding zeros; the active cells' pixels are
-// written (1 - exp(acc) when to_mask, else acc).  partial: scratch of
-// ceil(m / kChunk) * 2 * cs * cs floats.  Two launches: the chunks, then
-// the merge of cells that cross a chunk edge.  Returns the cudaError_t.
+// entries, ecell: m_max slots, the first *count of them valid (count is in
+// device memory; m_max sizes the grid).  starts, counts: the n_cells cells'
+// runs.  out: (out_h, out_w) float32 holding zeros; the pixels of the cells
+// with entries are written (1 - exp(acc) when to_mask, else acc).  partial:
+// scratch of ceil(m_max / kChunk) * 2 * cs * cs floats.  Two launches: the
+// chunks, then the merge of cells that cross a chunk edge.  Returns the
+// cudaError_t.
 int srt_splat_fwd(const float* col, const float* row, int n_pts,
-                  const int* entries, const int* ecell, int m,
-                  const int* cell_ids, const int* starts, const int* counts,
-                  int n_active, int cs, int ncx, int out_h, int out_w,
+                  const int* entries, const int* ecell, int m_max,
+                  const int* count, const int* starts, const int* counts,
+                  int n_cells, int cs, int ncx, int out_h, int out_w,
                   float r2_inv, float r_box, int to_mask, float* partial,
                   float* out, void* stream) {
-  if (m <= 0) return 0;
+  if (m_max <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int chunks = (m + kChunk - 1) / kChunk;
+  const int chunks = (m_max + kChunk - 1) / kChunk;
   splat_fwd_kernel<<<(chunks + kWarps - 1) / kWarps, kWarps * 32, 0, st>>>(
-      col, row, n_pts, entries, ecell, m, cs, ncx, out_h, out_w, r2_inv,
+      col, row, n_pts, entries, ecell, count, cs, ncx, out_h, out_w, r2_inv,
       r_box, to_mask, partial, out);
-  const long long threads = static_cast<long long>(n_active) * cs * cs;
+  const long long threads = static_cast<long long>(n_cells) * cs * cs;
   splat_fwd_merge_kernel<<<static_cast<int>((threads + 255) / 256), 256, 0,
-                           st>>>(cell_ids, starts, counts, n_active, cs, ncx,
-                                 out_h, out_w, to_mask, partial, out);
+                           st>>>(starts, counts, n_cells, cs, ncx, out_h,
+                                 out_w, to_mask, partial, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// g_img, mask_img: (h, w) float32, the mask's gradient and the mask; with
-// mask_img null, g_img is the accumulator's cotangent itself.  g_slots:
-// (n_slots, 2) float32 holding zeros; the pair of entry id e is written at
-// row e.  Returns the launch's cudaError_t.
+// entries, ecell, count: as srt_splat_fwd's.  g_img, mask_img: (h, w)
+// float32, the mask's gradient and the mask; with mask_img null, g_img is
+// the accumulator's cotangent itself.  g_slots: (n_slots, 2) float32
+// holding zeros; the pair of entry id e is written at row e.  Returns the
+// launch's cudaError_t.
 int srt_splat_bwd(const float* col, const float* row, int n_pts,
-                  const int* entries, const int* ecell, int m, int cs,
-                  int ncx, int h, int w, float r2_inv, float r_box,
-                  const float* g_img, const float* mask_img, float* g_slots,
-                  void* stream) {
-  if (m <= 0) return 0;
-  const int chunks = (m + kChunk - 1) / kChunk;
+                  const int* entries, const int* ecell, int m_max,
+                  const int* count, int cs, int ncx, int h, int w,
+                  float r2_inv, float r_box, const float* g_img,
+                  const float* mask_img, float* g_slots, void* stream) {
+  if (m_max <= 0) return 0;
+  const int chunks = (m_max + kChunk - 1) / kChunk;
   const int stage = cs * cs > kStage ? cs * cs : kStage;
   splat_bwd_kernel<<<(chunks + kWarps - 1) / kWarps, kWarps * 32,
                      kWarps * stage * sizeof(float),
                      static_cast<cudaStream_t>(stream)>>>(
-      col, row, n_pts, entries, ecell, m, cs, ncx, h, w, r2_inv, r_box, g_img,
-      mask_img, g_slots);
+      col, row, n_pts, entries, ecell, count, cs, ncx, h, w, r2_inv, r_box,
+      g_img, mask_img, g_slots);
   return static_cast<int>(cudaGetLastError());
 }
 

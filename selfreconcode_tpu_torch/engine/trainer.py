@@ -235,8 +235,13 @@ def image_batch(batch: dict, device) -> Tuple[torch.Tensor, ...]:
 def point_seeds(cam: Camera, verts: torch.Tensor, def_verts: torch.Tensor):
     """Per frame of def_verts (N, nv, 3), the template vertex whose
     projection is the nearest at each pixel (a scatter-min of depth, then
-    of vertex id).  Returns (seeds (N, H, W, 3), covered (N, H, W))."""
+    of vertex id).  Returns (seeds (N, H, W, 3), covered (N, H, W)).
+
+    A vertex off the image or behind the camera scatters into one slot past
+    the image's H * W, which is then dropped: no masked selection, so the
+    host reads nothing."""
     H, W = cam.H, cam.W
+    HW = H * W
     nv = verts.shape[0]
     dev = verts.device
     big = 3e38
@@ -250,15 +255,14 @@ def point_seeds(cam: Camera, verts: torch.Tensor, def_verts: torch.Tensor):
         z = s[:, 2]
         ok = (z > 0.0) & (col >= 0) & (col < W) & (row >= 0) & (row < H)
         pix = row.clamp(0, H - 1) * W + col.clamp(0, W - 1)
-        zimg = torch.full((H * W,), big, device=dev)
-        trace.count("host_syncs", 4)     # the four masked selections below
-        zimg.scatter_reduce_(0, pix[ok], z[ok], "amin")
+        zimg = torch.full((HW + 1,), big, device=dev)
+        zimg.scatter_reduce_(0, torch.where(ok, pix, HW), z, "amin")
         win = ok & (z <= zimg[pix])
-        vid = torch.full((H * W,), nv, dtype=torch.long, device=dev)
-        vid.scatter_reduce_(0, pix[win], torch.arange(nv, device=dev)[win],
-                            "amin")
-        covers.append((zimg < big).reshape(H, W))
-        inits.append(seed[vid].reshape(H, W, 3))
+        vid = torch.full((HW + 1,), nv, dtype=torch.long, device=dev)
+        vid.scatter_reduce_(0, torch.where(win, pix, HW),
+                            torch.arange(nv, device=dev), "amin")
+        covers.append((zimg[:HW] < big).reshape(H, W))
+        inits.append(seed[vid[:HW]].reshape(H, W, 3))
     return torch.stack(inits), torch.stack(covers)
 
 
@@ -323,8 +327,9 @@ def make_train_step(nets: AvatarNets, skinner: Skinner, cfg: StageStatic,
     and the DCT windows each run the poses' forward kinematics once; the
     outer pass twice, detached for the solve and with its graph for the
     IFT correction and the Jacobian.  Past the first step the host waits
-    for the device only at the exact-size binning's reads (8 a splatted
-    frame) and the readback."""
+    for the device only at the readback: the ray seeds and the splat's
+    binning have sizes the host knows (with ``point_inits``; fragment seeds
+    bin the mesh to its exact size, which reads the device)."""
     surf_cfg = SurfaceConfig(n_iters=cfg.surf_iters,
                              athreshold_deg=ang_thresh_deg,
                              newton=cfg.surf_newton)

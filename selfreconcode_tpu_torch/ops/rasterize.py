@@ -5,14 +5,19 @@ With unit features, alpha-compositing the splats that cover a pixel equals
 1 - prod_k (1 - w_k), w = 1 - d^2/r^2, which is order-independent: the mask
 is 1 - exp(sum_k log1p(-w_k)).  Splats are binned into cs x cs image cells
 (a splat's bbox is at most one cell wide, so it touches at most 2x2 cells);
-the forward kernel sums each active cell's whole candidate run per pixel and
+the forward kernel sums each cell's whole candidate run per pixel and
 writes the mask, and the backward kernel writes each entry's (d col, d row)
 at its entry id, whose <= 4 slots per point torch sums in a fixed order.
 There is no candidate capacity: the port drops no splat, so it equals the
 JAX mask wherever the JAX binning drops nothing (its ``stats[0] == 0``).
-The binning reads four values on the host (the entry count, bincount's
-least and largest cell, the active cells), each counted in ``host_syncs``
-(``utils/trace.py``).
+The splat's binning has a static size, 4 slots a point (``splat_bins``),
+and reads nothing back to the host: the kernels read the number of valid
+entries on the device.
+
+The mesh's binning (``cell_bins``) is exact-size: a triangle may cover any
+number of cells.  It reads four values on the host (the entry count,
+bincount's least and largest cell, the active cells), each counted in
+``host_syncs`` (``utils/trace.py``).
 
 Mesh fragments (torch port of ``rasterize_mesh``): the nearest face per
 pixel with its perspective-correct barycentrics and depth, non-
@@ -35,6 +40,7 @@ from . import splat_kernels as SK
 
 
 class CellBins(NamedTuple):
+    """The mesh kernel's bins: the exact entry list and the active cells."""
     entries: torch.Tensor    # (M,) int32 valid entries sorted by cell
     ecell: torch.Tensor      # (M,) int32 each sorted entry's cell
     cell_ids: torch.Tensor   # (A,) int32 active cells, ascending
@@ -72,14 +78,52 @@ def cell_bins(bb_min_x, bb_min_y, bb_max_x, bb_max_y, ok, H: int, W: int,
                     cs, ncx, hp, wp)
 
 
+class SplatBins(NamedTuple):
+    """The splat kernels' bins: 4 slots a point, the valid ones first."""
+    entries: torch.Tensor    # (4n,) int32 slot ids sorted by (cell, id)
+    ecell: torch.Tensor      # (4n,) int32 each slot's cell; ncy*ncx if invalid
+    count: torch.Tensor      # (1,) int32 the valid slots, on the device
+    starts: torch.Tensor     # (ncy*ncx,) int32 each cell's run start
+    counts: torch.Tensor     # (ncy*ncx,) int32 each cell's run length
+    cs: int
+    ncx: int
+
+
 def splat_bins(col, row, z, point_valid, r_pix: float, H: int, W: int,
-               cs: int) -> CellBins:
-    """The splats' cell bins (a splat's bbox is its centre +- r_pix)."""
+               cs: int) -> SplatBins:
+    """The splats' cell bins (a splat's bbox is its centre +- r_pix, at
+    most one cell wide: ``splat_cell_size``), with no host read.
+
+    Point i's bbox starts in cell (cy0, cx0) and touches at most the 2x2
+    block from there: slot k * n + i, k = 2 dy + dx, stands for cell
+    (cy0 + dy, cx0 + dx), and is valid where the point is, the cell lies in
+    the grid and the offset stays within the bbox.  These are the entries
+    ``cell_bins`` gives the same bboxes, with the same ids.  Sorted by cell
+    (invalid slots at the cell ncy * ncx past the last) and, stably, by id,
+    the valid slots come first, in ``cell_bins``' order; ``count`` says how
+    many there are, and each cell's run is in the dense table of every
+    cell."""
     half = r_pix
     ok = (point_valid & (z > 0.0) & (col + half >= 0) & (col - half <= W - 1)
           & (row + half >= 0) & (row - half <= H - 1))
-    return cell_bins(col - half, row - half, col + half, row + half, ok, H,
-                     W, cs)
+    ncy, ncx, _, _ = _cell_geometry(H, W, cs)
+    n_cells = ncy * ncx
+    cx0 = torch.floor((col - half) / cs).long()
+    cy0 = torch.floor((row - half) / cs).long()
+    cx1 = torch.floor((col + half) / cs).long()
+    cy1 = torch.floor((row + half) / cs).long()
+    k = torch.arange(4, device=col.device)[:, None]
+    x, y = cx0 + k % 2, cy0 + k // 2                      # (4, n)
+    valid = (ok & (x >= 0) & (x < ncx) & (x <= cx1) & (y >= 0) & (y < ncy)
+             & (y <= cy1))
+    cells = torch.where(valid, y * ncx + x, n_cells).reshape(-1)
+    ecell, entries = torch.sort(cells.to(torch.int32), stable=True)
+    bounds = torch.searchsorted(
+        ecell, torch.arange(n_cells + 1, dtype=torch.int32,
+                            device=col.device), out_int32=True)
+    return SplatBins(entries.to(torch.int32), ecell, bounds[n_cells:],
+                     bounds[:n_cells], bounds[1:] - bounds[:n_cells], cs,
+                     ncx)
 
 
 class _SplatMask(torch.autograd.Function):
@@ -94,20 +138,23 @@ class _SplatMask(torch.autograd.Function):
             col, row = col.contiguous(), row.contiguous()
             SK.check_points(col, row)
             bins = splat_bins(col, row, z, point_valid, r_pix, H, W, cs)
+            trace.count("splat_entries", [bins.count])
+            trace.count("splat_slots", bins.entries.shape[0])
             r2_inv = 1.0 / float(r_pix * r_pix)
-            mask = SK.fwd(col, row, bins.entries, bins.ecell, bins.cell_ids,
+            mask = SK.fwd(col, row, bins.entries, bins.ecell, bins.count,
                           bins.starts, bins.counts, cs, bins.ncx, H, W,
                           r2_inv)
-        ctx.save_for_backward(col, row, mask, bins.entries, bins.ecell)
+        ctx.save_for_backward(col, row, mask, bins.entries, bins.ecell,
+                              bins.count)
         ctx.geom = (cs, bins.ncx, r2_inv)
         return mask
 
     @staticmethod
     def backward(ctx, g):
-        col, row, mask, entries, ecell = ctx.saved_tensors
+        col, row, mask, entries, ecell, count = ctx.saved_tensors
         cs, ncx, r2_inv = ctx.geom
         n = col.shape[0]
-        g_slots = SK.bwd(col, row, entries, ecell,
+        g_slots = SK.bwd(col, row, entries, ecell, count,
                          g.to(torch.float32).contiguous(), mask, cs, ncx,
                          r2_inv, 4 * n)
         g_pts = g_slots.reshape(4, n, 2).sum(0)

@@ -8,18 +8,20 @@ at first use and called through ``ctypes`` (``ops/_cuda_build.py``).  The
 same two kernels also replace the dense-cell forms ``splat_fwd_cells`` and
 ``splat_bwd_cells`` (:176,342), which nothing in either package calls.
 
-Both kernels walk the binned entry list that ``ops/rasterize.py`` builds:
+Both kernels walk the binned slot list that ``ops/rasterize.py::splat_bins``
+builds, with a length the host knows without reading the device:
 
-  entries   (M,) int32  sorted entry ids k * n_pts + point (k < 4), grouped
-                        by cell in ascending cell order
-  ecell     (M,) int32  each entry's cell
-  cell_ids  (A,) int32  the active cells (every cell with an entry)
-  starts    (A,) int32  first position of each active cell's run
-  counts    (A,) int32  length of each active cell's run
+  entries   (S,) int32  sorted entry ids k * n_pts + point (k < 4), grouped
+                        by cell in ascending cell order, the valid ones first
+  ecell     (S,) int32  each entry's cell
+  count     (1,) int32  the valid entries (read by the kernels on the device)
+  starts    (C,) int32  first position of each cell's run, for every cell
+  counts    (C,) int32  length of each cell's run (0 for an empty cell)
 
-and cut it into chunks of ``CHUNK`` entries, one per warp.  The forward sums
-each cell's run chunk by chunk (a cell that crosses a chunk edge gets one
-partial sum per chunk, added in chunk order) and writes the mask
+and cut its first ``count`` entries into chunks of ``CHUNK`` entries, one per
+warp (the grid is sized by S; a warp past the count returns at once).  The
+forward sums each cell's run chunk by chunk (a cell that crosses a chunk edge
+gets one partial sum per chunk, added in chunk order) and writes the mask
 1 - exp(acc) (or acc, for the dense form); the backward forms the
 cotangent -g * (1 - mask) itself and writes each entry's gradient at its
 entry id.  The plain versions compute the same functions in the same
@@ -56,8 +58,8 @@ def _bind(lib):
     lib.srt_splat_fwd.argtypes = [p, p, i, p, p, i, p, p, p, i, i, i, i, i,
                                   f, f, i, p, p, p]
     lib.srt_splat_fwd.restype = i
-    lib.srt_splat_bwd.argtypes = [p, p, i, p, p, i, i, i, i, i, f, f, p, p,
-                                  p, p]
+    lib.srt_splat_bwd.argtypes = [p, p, i, p, p, i, p, i, i, i, i, f, f, p,
+                                  p, p, p]
     lib.srt_splat_bwd.restype = i
 
 
@@ -75,9 +77,9 @@ def check_points(col, row):
 
 
 def check_bins(col, *index, cs: int):
-    """entries, ecell[, cell_ids, starts, counts]: contiguous 1-D int32 on
-    col's device, entries and ecell of one length, the per-cell tensors of
-    one length."""
+    """entries, ecell, count[, starts, counts]: contiguous 1-D int32 on
+    col's device, entries and ecell of one length, count of length 1, the
+    per-cell tensors of one length."""
     for t in index:
         if t.device != col.device or t.dtype != torch.int32 or t.dim() != 1 \
                 or not t.is_contiguous():
@@ -86,9 +88,10 @@ def check_bins(col, *index, cs: int):
                              f"{tuple(t.shape)} on {t.device}")
     if index[0].shape != index[1].shape:
         raise ValueError("entries and ecell must have one length")
-    if len(index) == 5 and not (index[2].shape == index[3].shape
-                                == index[4].shape):
-        raise ValueError("cell_ids, starts and counts must have one length")
+    if index[2].shape != (1,):
+        raise ValueError("count must hold one value")
+    if len(index) == 5 and index[3].shape != index[4].shape:
+        raise ValueError("starts and counts must have one length")
     if not 1 <= cs <= 32:
         raise ValueError(f"cell size {cs} outside [1, 32]")
 
@@ -128,15 +131,22 @@ def _pairs(col, row, entries, ecell, cs, ncx):
     return px, py, dc, dr
 
 
-def splat_fwd_plain(col, row, entries, ecell, cell_ids, starts, counts,
+def _valid(count, *slots):
+    """The first `count` of each slot tensor (a host read of count)."""
+    m = int(count)
+    return [t[:m] for t in slots]
+
+
+def splat_fwd_plain(col, row, entries, ecell, count, starts, counts,
                     cs: int, ncx: int, out_h: int, out_w: int, r2_inv: float,
                     to_mask: bool = True):
-    """(out_h, out_w) image: 1 - exp(acc) (to_mask) or acc on the active
-    cells' pixels, 0 elsewhere.  acc sums log1p(-clip(w)) grouped as in the
-    kernel: each run of one cell within one CHUNK-entry chunk (the kernel
-    forms it as the log of the product of the (1 - w)), then a cell's
-    chunk sums in chunk order."""
+    """(out_h, out_w) image: 1 - exp(acc) (to_mask) or acc on the pixels
+    of the cells with entries, 0 elsewhere.  acc sums log1p(-clip(w)) over
+    the first `count` entries grouped as in the kernel: each run of one
+    cell within one CHUNK-entry chunk (the kernel forms it as the log of the
+    product of the (1 - w)), then a cell's chunk sums in chunk order."""
     out = torch.zeros((out_h, out_w), dtype=col.dtype, device=col.device)
+    entries, ecell = _valid(count, entries, ecell)
     M = entries.shape[0]
     if M == 0:
         return out
@@ -161,11 +171,13 @@ def splat_fwd_plain(col, row, entries, ecell, cell_ids, starts, counts,
     return out
 
 
-def splat_bwd_plain(col, row, entries, ecell, g_img, mask_img, cs: int,
-                    ncx: int, r2_inv: float, n_slots: int):
-    """(n_slots, 2): at row e the (d col, d row) of entry id e, 0 on ids no
-    entry has.  The cotangent is -g * (1 - mask) on g_img's pixels (g_img
-    itself when mask_img is None) and 0 beyond them."""
+def splat_bwd_plain(col, row, entries, ecell, count, g_img, mask_img,
+                    cs: int, ncx: int, r2_inv: float, n_slots: int):
+    """(n_slots, 2): at row e the (d col, d row) of entry id e among the
+    first `count` entries, 0 on ids no such entry has.  The cotangent is
+    -g * (1 - mask) on g_img's pixels (g_img itself when mask_img is None)
+    and 0 beyond them."""
+    entries, ecell = _valid(count, entries, ecell)
     h, w_img = g_img.shape
     cot_img = g_img if mask_img is None else -g_img * (1.0 - mask_img)
     px, py, dc, dr = _pairs(col, row, entries, ecell, cs, ncx)
@@ -190,7 +202,7 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def fwd_call(col, row, entries, ecell, cell_ids, starts, counts, cs, ncx,
+def fwd_call(col, row, entries, ecell, count, starts, counts, cs, ncx,
              out_h, out_w, r2_inv, to_mask=True):
     """One forward launch as (ctypes function, its arguments, (the output,
     the scratch of per-chunk partial sums)): the kernel alone, with the
@@ -201,22 +213,22 @@ def fwd_call(col, row, entries, ecell, cell_ids, starts, counts, cs, ncx,
                           device=col.device)
     return LIB.load().srt_splat_fwd, (
         col.data_ptr(), row.data_ptr(), col.shape[0], entries.data_ptr(),
-        ecell.data_ptr(), entries.shape[0], cell_ids.data_ptr(),
-        starts.data_ptr(), counts.data_ptr(), cell_ids.shape[0], cs, ncx,
+        ecell.data_ptr(), entries.shape[0], count.data_ptr(),
+        starts.data_ptr(), counts.data_ptr(), starts.shape[0], cs, ncx,
         out_h, out_w, float(r2_inv), _r_box(r2_inv), int(to_mask),
         partial.data_ptr(), out.data_ptr(), _stream(col)), (out, partial)
 
 
-def bwd_call(col, row, entries, ecell, g_img, mask_img, cs, ncx, r2_inv,
-             n_slots):
+def bwd_call(col, row, entries, ecell, count, g_img, mask_img, cs, ncx,
+             r2_inv, n_slots):
     """One backward launch as (ctypes function, its arguments, the
     output)."""
     g = torch.zeros((n_slots, 2), dtype=torch.float32, device=col.device)
     h, w = g_img.shape
     return LIB.load().srt_splat_bwd, (
         col.data_ptr(), row.data_ptr(), col.shape[0], entries.data_ptr(),
-        ecell.data_ptr(), entries.shape[0], cs, ncx, h, w, float(r2_inv),
-        _r_box(r2_inv), g_img.data_ptr(),
+        ecell.data_ptr(), entries.shape[0], count.data_ptr(), cs, ncx, h, w,
+        float(r2_inv), _r_box(r2_inv), g_img.data_ptr(),
         None if mask_img is None else mask_img.data_ptr(), g.data_ptr(),
         _stream(col)), g
 
@@ -226,16 +238,16 @@ def _require_cuda(t, what: str):
         raise ValueError(f"{what}: unsupported device {t.device}")
 
 
-def fwd(col, row, entries, ecell, cell_ids, starts, counts, cs, ncx, out_h,
+def fwd(col, row, entries, ecell, count, starts, counts, cs, ncx, out_h,
         out_w, r2_inv, to_mask=True, counter="splat_fwd_launches"):
     """The forward on checked inputs.  CPU -> plain version; CUDA -> the
     kernel (or an exception), counted in the host counter `counter`; with
-    no entry nothing is launched."""
+    no slot nothing is launched."""
     if col.device.type == "cpu":
-        return splat_fwd_plain(col, row, entries, ecell, cell_ids, starts,
+        return splat_fwd_plain(col, row, entries, ecell, count, starts,
                                counts, cs, ncx, out_h, out_w, r2_inv, to_mask)
     _require_cuda(col, "splat_fwd")
-    fn, args, (out, partial) = fwd_call(col, row, entries, ecell, cell_ids,
+    fn, args, (out, partial) = fwd_call(col, row, entries, ecell, count,
                                         starts, counts, cs, ncx, out_h,
                                         out_w, r2_inv, to_mask)
     if entries.shape[0] == 0:
@@ -246,16 +258,16 @@ def fwd(col, row, entries, ecell, cell_ids, starts, counts, cs, ncx, out_h,
     return out
 
 
-def bwd(col, row, entries, ecell, g_img, mask_img, cs, ncx, r2_inv,
+def bwd(col, row, entries, ecell, count, g_img, mask_img, cs, ncx, r2_inv,
         n_slots, counter="splat_bwd_launches"):
     """The backward on checked inputs: per-slot gradients.  A launch is
     counted in the host counter `counter`."""
     if col.device.type == "cpu":
-        return splat_bwd_plain(col, row, entries, ecell, g_img, mask_img, cs,
-                               ncx, r2_inv, n_slots)
+        return splat_bwd_plain(col, row, entries, ecell, count, g_img,
+                               mask_img, cs, ncx, r2_inv, n_slots)
     _require_cuda(col, "splat_bwd")
-    fn, args, g = bwd_call(col, row, entries, ecell, g_img, mask_img, cs,
-                           ncx, r2_inv, n_slots)
+    fn, args, g = bwd_call(col, row, entries, ecell, count, g_img, mask_img,
+                           cs, ncx, r2_inv, n_slots)
     if entries.shape[0] == 0:
         return g
     check_launch(fn(*args), "splat_bwd")
@@ -263,44 +275,45 @@ def bwd(col, row, entries, ecell, g_img, mask_img, cs, ncx, r2_inv,
     return g
 
 
-def splat_fwd(col, row, entries, ecell, cell_ids, starts, counts, cs: int,
+def splat_fwd(col, row, entries, ecell, count, starts, counts, cs: int,
               ncx: int, out_h: int, out_w: int, r2_inv: float,
               to_mask: bool = True):
     """Mask (or accumulator) image (out_h, out_w), checked inputs.  CPU ->
     plain version; CUDA -> the kernel (or an exception)."""
     check_points(col, row)
-    check_bins(col, entries, ecell, cell_ids, starts, counts, cs=cs)
-    return fwd(col, row, entries, ecell, cell_ids, starts, counts, cs, ncx,
+    check_bins(col, entries, ecell, count, starts, counts, cs=cs)
+    return fwd(col, row, entries, ecell, count, starts, counts, cs, ncx,
                out_h, out_w, r2_inv, to_mask)
 
 
-def splat_bwd(col, row, entries, ecell, g_img, mask_img, cs: int, ncx: int,
-              r2_inv: float, n_slots: int):
+def splat_bwd(col, row, entries, ecell, count, g_img, mask_img, cs: int,
+              ncx: int, r2_inv: float, n_slots: int):
     """Per-slot gradients (n_slots, 2), checked inputs.  CPU -> plain
     version; CUDA -> the kernel (or an exception)."""
     check_points(col, row)
-    check_bins(col, entries, ecell, cs=cs)
+    check_bins(col, entries, ecell, count, cs=cs)
     _check_image(g_img, col, "g_img")
     if mask_img is not None:
         _check_image(mask_img, col, "mask_img")
         if mask_img.shape != g_img.shape:
             raise ValueError("mask_img and g_img must have one shape")
-    return bwd(col, row, entries, ecell, g_img, mask_img, cs, ncx, r2_inv,
-               n_slots)
+    return bwd(col, row, entries, ecell, count, g_img, mask_img, cs, ncx,
+               r2_inv, n_slots)
 
 
 # ---------------------------------------------------------------------------
 # Dense-cell forms: replace ``splat_fwd_cells`` / ``splat_bwd_cells``
-# (pallas_raster.py:176,342).  Every cell c of a (C, 2, cap) slot tensor is
-# active with grid index c; its entries are the slots with col < BIG / 2 in
-# slot order, with slot ids as entry ids (k = 0).  Same kernels as above,
-# with the accumulator image relaid to the cell-major (C, cs*cs) layout and
-# the gradient written straight into the slots.
+# (pallas_raster.py:176,342).  Cell c of a (C, 2, cap) slot tensor is cell c
+# of the grid; its entries are the slots with col < BIG / 2 in slot order,
+# with slot ids as entry ids (k = 0), listed at their exact length.  Same
+# kernels as above, with the accumulator image relaid to the cell-major
+# (C, cs*cs) layout and the gradient written straight into the slots.
 # ---------------------------------------------------------------------------
 
 def dense_bins(pts, cs: int, ncx: int):
-    """((col, row, entries, ecell, cell_ids, starts, counts), hp, wp) of a
-    (C, 2, cap) slot tensor."""
+    """((col, row, entries, ecell, count, starts, counts), hp, wp) of a
+    (C, 2, cap) slot tensor: the filled slots alone (a host read of their
+    number, which sizes the grids)."""
     if pts.dtype != torch.float32 or pts.dim() != 3 or pts.shape[1] != 2:
         raise ValueError(f"pts must be float32 (C, 2, cap), got "
                          f"{pts.dtype} {tuple(pts.shape)}")
@@ -310,11 +323,11 @@ def dense_bins(pts, cs: int, ncx: int):
     valid = col < BIG / 2
     counts = valid.reshape(C, cap).sum(1, dtype=torch.int32)
     starts = (torch.cumsum(counts, 0, dtype=torch.int32) - counts)
+    count = counts.sum(dtype=torch.int32).reshape(1)
     entries = torch.nonzero(valid).squeeze(1).to(torch.int32)
     ecell = torch.div(entries, cap, rounding_mode="floor")
-    cell_ids = torch.arange(C, dtype=torch.int32, device=pts.device)
     ncy = -(-C // ncx)
-    return ((col, row, entries, ecell, cell_ids, starts, counts), ncy * cs,
+    return ((col, row, entries, ecell, count, starts, counts), ncy * cs,
             ncx * cs)
 
 
@@ -342,7 +355,7 @@ def _dense_fwd(pts, cs: int, ncx: int, r_pix: float, run):
 def _dense_bwd(pts, cot, cs: int, ncx: int, r_pix: float, run):
     C, _, cap = pts.shape
     bins, _, _ = dense_bins(pts, cs, ncx)
-    g = run(*bins[:4], cells_to_image(cot, cs, ncx), None, cs, ncx,
+    g = run(*bins[:5], cells_to_image(cot, cs, ncx), None, cs, ncx,
             1.0 / float(r_pix * r_pix), C * cap)
     return g.reshape(C, cap, 2).permute(0, 2, 1).contiguous()
 

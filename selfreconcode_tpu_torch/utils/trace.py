@@ -22,11 +22,15 @@ solve, ``solve_graph_captures`` (a capture, at a solve of new shapes) and
 ``solve_graph_replays`` (a solve that replayed a graph captured earlier),
 and of the outer pass's body, ``outer_graph_captures`` (a capture, at a
 step function's first step and at new shapes or storage) and
-``outer_graph_replays`` (a step that replayed a graph captured earlier).
+``outer_graph_replays`` (a step that replayed a graph captured earlier),
+and ``splat_slots`` (the slots of each splatted frame's bins, 4 a point).
 
 A device counter is a row of sums of device tensors, kept on the device and
 copied to the host by the training step's readback (``tolist``), so tracing
 adds no synchronize; a row still unread is copied by ``read_and_clear``.
+The port's: ``solve_converged`` (``engine/surface.py``) and
+``splat_entries``, a splatted frame's valid entries among its slots
+(``ops/rasterize.py``).
 
 Spans are opened and closed on one thread (the training loop's); counters
 may be added from autograd's thread while that thread waits in backward.

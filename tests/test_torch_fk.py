@@ -1,7 +1,8 @@
 """The forward kinematics of the port's skinner (``models/skinner.py``),
 one homogeneous build for all joints and then the chain, and its use in the
-training step: one FK per pose set per pass, and on the card no host sync
-from the outer pass to the step's readback.  Imports neither JAX nor the JAX package, so that it also
+training step: one FK per pose set per pass, the geom pass's ray seeds with
+no masked selection, and on the card no host sync from the geom pass to
+the step's readback.  Imports neither JAX nor the JAX package, so that it also
 runs on the card, where ``tests/conftest.py`` (which imports JAX) cannot
 load:
 
@@ -25,6 +26,8 @@ from selfreconcode_tpu_torch.engine import trainer as TTR
 from selfreconcode_tpu_torch.models import deformer as DEF
 from selfreconcode_tpu_torch.models import skinner as SK
 from selfreconcode_tpu_torch.models.smpl import smpl_tmp_apose, toy_smpl_model
+from selfreconcode_tpu_torch.render.camera import (Camera,
+                                                   transform_points_screen)
 from selfreconcode_tpu_torch.utils import trace
 from selfreconcode_tpu_torch.utils.math import batch_rodrigues, make_homo
 
@@ -201,14 +204,73 @@ def _with_normals(scene, H, W):
         cv2.imwrite(osp.join(scene, "normals", name[:-3] + "png"), nrm)
 
 
+def masked_point_seeds(cam, verts, def_verts):
+    """``point_seeds`` as it was, with masked selections (four host reads a
+    frame on the card)."""
+    H, W = cam.H, cam.W
+    nv = verts.shape[0]
+    big = 3e38
+    seed = torch.cat([verts, verts.new_zeros(1, 3)])
+    inits, covers = [], []
+    for dv in def_verts:
+        s = transform_points_screen(cam, dv)
+        col = torch.round(s[:, 0]).long()
+        row = torch.round(s[:, 1]).long()
+        z = s[:, 2]
+        ok = (z > 0.0) & (col >= 0) & (col < W) & (row >= 0) & (row < H)
+        pix = row.clamp(0, H - 1) * W + col.clamp(0, W - 1)
+        zimg = torch.full((H * W,), big)
+        zimg.scatter_reduce_(0, pix[ok], z[ok], "amin")
+        win = ok & (z <= zimg[pix])
+        vid = torch.full((H * W,), nv, dtype=torch.long)
+        vid.scatter_reduce_(0, pix[win], torch.arange(nv)[win], "amin")
+        covers.append((zimg < big).reshape(H, W))
+        inits.append(seed[vid].reshape(H, W, 3))
+    return torch.stack(inits), torch.stack(covers)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_point_seeds_equal_the_masked_selection(seed):
+    """The seeds and the cover, bit for bit, of the masked-selection
+    version, on frames with depth ties (vertices repeated, and vertices
+    at one depth within one pixel), vertices off the image and vertices
+    at or behind the camera."""
+    g = torch.Generator().manual_seed(seed)
+    H, W = 24, 40
+    cam = Camera(torch.tensor([30.0, 31.0]), torch.tensor([19.5, 11.2]),
+                 torch.eye(3), torch.tensor([0.0, 0.0, 2.5]), H, W)
+    nv = 700
+    verts = torch.randn(nv, 3, generator=g)
+    frames = []
+    for _ in range(2):
+        dv = torch.randn(nv, 3, generator=g) * torch.tensor([1.6, 1.0, 0.3])
+        dv[100:150] = dv[50:100]                      # the same point twice
+        dv[150:200] = dv[200:250] + torch.tensor([1e-3, 0.0, 0.0])
+        dv[250:300, 2] = -2.5 - torch.rand(50, generator=g)   # z <= 0
+        dv[300, 2] = -2.5
+        dv[300:350, :2] *= 8.0                        # off the image
+        frames.append(dv)
+    def_verts = torch.stack(frames)
+    got = TTR.point_seeds(cam, verts, def_verts)
+    want = masked_point_seeds(cam, verts, def_verts)
+    s = transform_points_screen(cam, frames[0])
+    assert (s[:, 2] <= 0).sum() >= 50 and (s[:, 0] < 0).any()
+    assert want[1].any() and not want[1].all()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
-def test_no_sync_from_the_outer_pass_to_the_readback(tmp_path, monkeypatch):
-    """The second step of a fine stage (the first captured the solve's
-    and the outer pass's graphs and learnt the update's flags) under
-    ``torch.cuda.set_sync_debug_mode("error")`` from the outer pass's start
-    to the step's readback, and around every FK: a sync there raises.  The
-    outer pass's body replays its graph there, so the FKs that run on the
-    host are the geom pass's, the inner pass's and the solve's."""
+@pytest.mark.parametrize("stage", ["fine", "coarse"])
+def test_no_sync_from_the_geom_pass_to_the_readback(tmp_path, monkeypatch,
+                                                    stage):
+    """The second step of a fine stage (one frame) and of a coarse stage
+    (three frames splatted), the first having captured the solve's and
+    the outer pass's graphs and learnt the update's flags, under
+    ``torch.cuda.set_sync_debug_mode("error")`` from the geom pass's start
+    to the step's readback: a sync there raises.  The outer pass's body
+    replays its graph there, so the FKs that run on the host are the geom
+    pass's, the inner pass's and the solve's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run this file on the card as its "
                     "docstring says)")
@@ -216,22 +278,18 @@ def test_no_sync_from_the_outer_pass_to_the_readback(tmp_path, monkeypatch):
     scene = osp.join(str(tmp_path), "scene")
     make_synthetic_scene(scene, n_frames=4, H=32, W=32)
     _with_normals(scene, 32, 32)
-    tr, ds = _trainer(tmp_path, device="cuda", stage="fine")
+    tr, ds = _trainer(tmp_path, device="cuda", stage=stage)
     assert tr.stage_cfg.has_normals and tr.stage_cfg.weights.normal_weight > 0
+    assert tr.stage_cfg.N == {"fine": 1, "coarse": 3}[stage]
     _step(tr, ds, 0)
-    checking = {"on": False, "outer": 0, "fk": 0}
+    checking = {"on": False, "geom": 0, "fk": 0}
 
     def strict(fk):
         def run(*a, **kw):
-            if not checking["on"]:
-                return fk(*a, **kw)
-            prev = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
+            if checking["on"]:
+                assert torch.cuda.get_sync_debug_mode() == 2     # "error"
                 checking["fk"] += 1
-                return fk(*a, **kw)
-            finally:
-                torch.cuda.set_sync_debug_mode(prev)
+            return fk(*a, **kw)
         return run
 
     class Span(trace.span):
@@ -239,8 +297,8 @@ def test_no_sync_from_the_outer_pass_to_the_readback(tmp_path, monkeypatch):
 
         def __enter__(self):
             out = super().__enter__()
-            if checking["on"] and self.name == "step.outer":
-                checking["outer"] += 1
+            if checking["on"] and self.name == "step.geom":
+                checking["geom"] += 1
                 torch.cuda.set_sync_debug_mode("error")
             return out
 
@@ -259,7 +317,7 @@ def test_no_sync_from_the_outer_pass_to_the_readback(tmp_path, monkeypatch):
         info = _step(tr, ds, 1)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert checking == {"on": True, "outer": 1, "fk": 3}
+    assert checking == {"on": True, "geom": 1, "fk": 3}
     assert trace.read_and_clear()["counters"]["outer_graph_replays"] == 1
     assert np.isfinite(info["loss"]) and "normal_loss" in info
 

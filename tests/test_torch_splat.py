@@ -17,19 +17,26 @@ cut into ``SK.CHUNK``-entry chunks (the "chunks" cloud has a cell of more
 than two chunks and runs that cross chunk edges), the mask formed inside
 the forward, the cotangent -g * (1 - mask) inside the backward, and each
 entry's gradient written at its entry id.
+
+The splat's bins have a static size, 4 slots a point, the valid ones first
+(``splat_bins``): their valid prefix is the exact-size ``cell_bins`` list,
+and the mask and its gradient from them are those of the exact list, bit
+for bit.
+
+JAX is imported by the parity tests alone, so that the card's tests run on
+the card, where neither JAX nor ``tests/conftest.py`` can load:
+
+    python -m pytest --noconftest -p no:cacheprovider -q -m cuda \
+        tests/test_torch_splat.py
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from selfreconcode_tpu.ops import pallas_raster as PR
-from selfreconcode_tpu.ops.rasterize import splat_mask as jsplat
-from selfreconcode_tpu.render.camera import Camera as JCam
 from selfreconcode_tpu_torch.ops import splat_kernels as SK
-from selfreconcode_tpu_torch.ops.rasterize import splat_bins, splat_mask
+from selfreconcode_tpu_torch.ops.rasterize import (cell_bins, splat_bins,
+                                                   splat_mask)
 from selfreconcode_tpu_torch.utils import trace
 from selfreconcode_tpu_torch.render.camera import (Camera,
                                                    transform_points_screen)
@@ -97,6 +104,10 @@ CASES = {"dense": dense_cloud, "border": border_cloud,
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_splat_mask_and_grads_match_jax(case):
+    import jax
+    import jax.numpy as jnp
+    from selfreconcode_tpu.ops.rasterize import splat_mask as jsplat
+    from selfreconcode_tpu.render.camera import Camera as JCam
     rng = np.random.default_rng(sorted(CASES).index(case))
     pts, valid, r_pix = CASES[case](rng)
     radius = 2.0 * r_pix / W
@@ -116,7 +127,7 @@ def test_splat_mask_and_grads_match_jax(case):
         assert occupancy > 2 * SK.CHUNK
         ends = b.starts + b.counts - 1
         assert ((b.starts // SK.CHUNK != ends // SK.CHUNK)
-                & (b.starts % SK.CHUNK != 0)).any()
+                & (b.starts % SK.CHUNK != 0) & (b.counts > 0)).any()
 
     def jloss(p, f, pr, t):
         jc = JCam(f, pr, jnp.asarray(R), t, H, W)
@@ -156,7 +167,7 @@ def _bins_for(pts, r_pix, device, valid=None):
 
 
 def _fwd_args(col, row, b, r_pix):
-    return (col, row, b.entries, b.ecell, b.cell_ids, b.starts, b.counts, 8,
+    return (col, row, b.entries, b.ecell, b.count, b.starts, b.counts, 8,
             b.ncx, H, W, 1.0 / (r_pix * r_pix))
 
 
@@ -169,8 +180,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     torch.testing.assert_close(mask, SK.splat_fwd_plain(*args))
     assert torch.equal(SK.fwd(*args), mask)
     g_img = torch.randn(H, W)
-    bargs = (col, row, b.entries, b.ecell, g_img, mask, 8, b.ncx, args[-1],
-             4 * col.shape[0])
+    bargs = (col, row, b.entries, b.ecell, b.count, g_img, mask, 8, b.ncx,
+             args[-1], 4 * col.shape[0])
     g = SK.splat_bwd(*bargs)
     assert g.shape == (4 * col.shape[0], 2)
     assert torch.equal(SK.bwd(*bargs), g)
@@ -188,8 +199,9 @@ def test_decode_takes_both_entry_layouts():
     pts, _, r_pix = border_cloud(np.random.default_rng(6))
     col, _, b = _bins_for(pts, r_pix, "cpu")
     n = col.shape[0]
-    assert int(b.entries.max()) >= 3 * n        # all four corners occur
-    assert torch.equal(SK.decode(b.entries, n), b.entries.long() % n)
+    entries = b.entries[:int(b.count)]
+    assert int(entries.max()) >= 3 * n          # all four corners occur
+    assert torch.equal(SK.decode(entries, n), entries.long() % n)
     slots = torch.arange(5 * 64, dtype=torch.int32)
     assert torch.equal(SK.decode(slots, 5 * 64), slots.long())
     bins, _, _ = SK.dense_bins(torch.tensor(dense_slots(
@@ -197,6 +209,7 @@ def test_decode_takes_both_entry_layouts():
     assert torch.equal(SK.decode(bins[2], bins[0].shape[0]),
                        bins[2].long())
     assert torch.equal(bins[3].long(), bins[2].long() // 64)
+    assert bins[2].numel() == int(bins[4]) == int(bins[6].sum())
 
 
 def test_plain_forward_sums_chunks_and_fuses_the_mask():
@@ -209,10 +222,11 @@ def test_plain_forward_sums_chunks_and_fuses_the_mask():
     mask = SK.splat_fwd_plain(*args)
     assert torch.equal(mask, 1.0 - torch.exp(acc))
     r2_inv = args[-1]
-    p = b.entries.long() % col.shape[0]
+    m = int(b.count)
+    p = b.entries[:m].long() % col.shape[0]
     yy, xx = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
     ref = torch.zeros(H, W, dtype=torch.float64)
-    for cell, i in zip(b.ecell.tolist(), p.tolist()):
+    for cell, i in zip(b.ecell[:m].tolist(), p.tolist()):
         cy, cx = divmod(cell, b.ncx)
         inside = (yy // 8 == cy) & (xx // 8 == cx)
         w = 1.0 - ((col[i] - xx) ** 2 + (row[i] - yy) ** 2) * r2_inv
@@ -231,15 +245,128 @@ def test_plain_backward_fuses_the_cotangent_into_entry_slots():
     mask = SK.splat_fwd_plain(*args)
     g_img = torch.randn(H, W, generator=torch.Generator().manual_seed(0))
     n = col.shape[0]
-    g = SK.splat_bwd_plain(col, row, b.entries, b.ecell, g_img, mask, 8,
-                           b.ncx, args[-1], 4 * n)
-    g_cot = SK.splat_bwd_plain(col, row, b.entries, b.ecell,
+    g = SK.splat_bwd_plain(col, row, b.entries, b.ecell, b.count, g_img,
+                           mask, 8, b.ncx, args[-1], 4 * n)
+    g_cot = SK.splat_bwd_plain(col, row, b.entries, b.ecell, b.count,
                                -g_img * (1.0 - mask), None, 8, b.ncx,
                                args[-1], 4 * n)
     assert torch.equal(g, g_cot)
     unused = torch.ones(4 * n, dtype=torch.bool)
-    unused[b.entries.long()] = False
+    unused[b.entries[:int(b.count)].long()] = False
     assert (g[unused] == 0).all() and g[~unused].abs().max() > 0
+
+
+SH, SW = 40, 72        # the static binning's image: 72 px wide, 40 tall
+
+
+def static_cloud(cs, r_pix, seed, n=900):
+    """Screen splats for cs px cells: centres on the image and up to two
+    cells off it, bboxes whose first or last pixel lies on a cell edge,
+    points with z <= 0 and points marked invalid, and none that reaches the
+    first cell."""
+    rng = np.random.default_rng(seed)
+    col = rng.uniform(-2 * cs, SW + 2 * cs, n)
+    row = rng.uniform(-2 * cs, SH + 2 * cs, n)
+    k = rng.integers(-1, SW // cs + 2, n)
+    side = rng.choice([-1.0, 1.0], n)           # first or last edge on it
+    on_edge = rng.random(n) < 0.3
+    col = np.where(on_edge, cs * k + side * r_pix, col)
+    row = np.where(on_edge & (rng.random(n) < 0.5),
+                   cs * rng.integers(-1, SH // cs + 2, n) - side * r_pix, row)
+    col = np.where((col < cs + r_pix) & (row < cs + r_pix), col + SW + 3 * cs,
+                   col)
+    z = np.where(rng.random(n) < 0.15, -rng.random(n), 0.5 + rng.random(n))
+    z[:7] = 0.0
+    valid = rng.random(n) > 0.1
+    return (torch.tensor(col, dtype=torch.float32),
+            torch.tensor(row, dtype=torch.float32),
+            torch.tensor(z, dtype=torch.float32), torch.tensor(valid))
+
+
+def exact_bins(col, row, z, point_valid, r_pix, H, W, cs):
+    """The exact-size ``cell_bins`` list in the splat kernels' layout: no
+    padding, the count its length, the active cells' runs in the table of
+    every cell."""
+    from selfreconcode_tpu_torch.ops.rasterize import SplatBins
+    ok = (point_valid & (z > 0.0) & (col + r_pix >= 0)
+          & (col - r_pix <= W - 1) & (row + r_pix >= 0)
+          & (row - r_pix <= H - 1))
+    e = cell_bins(col - r_pix, row - r_pix, col + r_pix, row + r_pix, ok, H,
+                  W, cs)
+    counts = torch.zeros((e.hp // cs) * e.ncx, dtype=torch.int32)
+    counts[e.cell_ids.long()] = e.counts
+    starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    return SplatBins(e.entries, e.ecell,
+                     torch.tensor([e.entries.numel()], dtype=torch.int32),
+                     starts, counts, cs, e.ncx), e
+
+
+STATIC = [(cs, frac) for cs in (8, 16, 32) for frac in (0.4999, 0.13)]
+
+
+@pytest.mark.parametrize("cs, frac", STATIC)
+def test_static_bins_are_the_exact_bins_padded(cs, frac):
+    """4 slots a point, sorted: the valid prefix is cell_bins' exact list
+    (entries and cells), the device count its length, every cell's run
+    start and length those of the exact list (0 long where it has none),
+    and each slot past the count at the cell past the last."""
+    r_pix = frac * cs                           # 2 r_pix just under cs
+    col, row, z, valid = static_cloud(cs, r_pix, STATIC.index((cs, frac)))
+    b = splat_bins(col, row, z, valid, r_pix, SH, SW, cs)
+    want, e = exact_bins(col, row, z, valid, r_pix, SH, SW, cs)
+    n, m = col.shape[0], int(b.count)
+    assert b.entries.shape == b.ecell.shape == (4 * n,)
+    assert b.count.dtype == torch.int32 and b.count.shape == (1,)
+    assert m == e.entries.numel() > 0
+    assert torch.equal(b.entries[:m], e.entries)
+    assert torch.equal(b.ecell[:m], e.ecell)
+    assert (b.ecell[m:] == b.counts.numel()).all()
+    assert torch.equal(b.counts, want.counts)
+    assert torch.equal(b.starts, want.starts)
+    assert torch.equal(b.starts[e.cell_ids.long()], e.starts)
+    assert (b.cs, b.ncx) == (cs, e.ncx)
+    # the cloud has all four corners, an empty cell and points left out
+    assert int(e.entries.max()) >= 3 * n
+    assert b.counts[0] == 0
+    assert m < 4 * int(valid.sum())
+
+
+@pytest.mark.parametrize("cs, frac", STATIC)
+def test_padded_bins_give_the_exact_mask_and_gradient(cs, frac,
+                                                      monkeypatch):
+    """The splat's autograd function on the plain path: its mask and the
+    gradient of the points from the padded bins equal, bit for bit, those
+    from the exact-size list."""
+    from selfreconcode_tpu_torch.ops import rasterize as RZ
+    r_pix = frac * cs
+    col, row, z, valid = static_cloud(cs, r_pix, 10 + STATIC.index(
+        (cs, frac)))
+    target = torch.rand(SH, SW, generator=torch.Generator().manual_seed(cs))
+
+    def run():
+        c, r = col.clone().requires_grad_(True), row.clone().requires_grad_(
+            True)
+        mask = RZ._SplatMask.apply(c, r, z, valid, r_pix, SH, SW, cs)
+        (mask * target).sum().backward()
+        return mask.detach(), c.grad, r.grad
+
+    padded = run()
+    monkeypatch.setattr(RZ, "splat_bins",
+                        lambda *a: exact_bins(*a)[0])
+    exact = run()
+    assert padded[0].max() > 0 and padded[1].abs().max() > 0
+    for a, b in zip(padded, exact):
+        assert torch.equal(a, b)
+    # the plain versions stop at the count, as the kernels do
+    b = splat_bins(col, row, z, valid, r_pix, SH, SW, cs)
+    none = torch.zeros(1, dtype=torch.int32)
+    r2_inv = 1.0 / (r_pix * r_pix)
+    assert not SK.splat_fwd_plain(col, row, b.entries, b.ecell, none,
+                                  b.starts, b.counts, cs, b.ncx, SH, SW,
+                                  r2_inv).any()
+    assert not SK.splat_bwd_plain(col, row, b.entries, b.ecell, none,
+                                  target, padded[0], cs, b.ncx, r2_inv,
+                                  b.entries.numel()).any()
 
 
 def dense_slots(rng, C=32, ncx=8, cs=8, cap=64, r_pix=2.5):
@@ -252,12 +379,15 @@ def dense_slots(rng, C=32, ncx=8, cs=8, cap=64, r_pix=2.5):
     row = y0 + rng.uniform(-r_pix, cs + r_pix, (C, cap))
     empty = rng.random((C, cap)) < 0.3
     empty[5] = True
-    col = np.where(empty, PR.BIG, col)
+    col = np.where(empty, SK.BIG, col)
     return np.stack([col, row], 1).astype(np.float32), ~empty
 
 
 @pytest.mark.parametrize("C,ncx", [(16, 4), (32, 8)])
 def test_dense_cell_forms_match_jax(C, ncx):
+    import jax.numpy as jnp
+    from selfreconcode_tpu.ops import pallas_raster as PR
+    assert PR.BIG == SK.BIG
     rng = np.random.default_rng(C)
     cs, r_pix = 8, 2.5
     pts, valid = dense_slots(rng, C, ncx, cs, 64, r_pix)
@@ -294,13 +424,20 @@ def test_kernels_match_plain_on_the_card():
     torch.testing.assert_close(acc, SK.splat_fwd_plain(*args, to_mask=False),
                                rtol=1e-4, atol=1e-4)
     g_img = torch.randn(H, W, device="cuda")
-    bwd = (col, row, b.entries, b.ecell, g_img, mask, 8, b.ncx, args[-1],
-           4 * col.shape[0])
+    bwd = (col, row, b.entries, b.ecell, b.count, g_img, mask, 8, b.ncx,
+           args[-1], 4 * col.shape[0])
     g = SK.splat_bwd(*bwd)
     gp = SK.splat_bwd_plain(*bwd)
     torch.testing.assert_close(g, gp, rtol=0,
                                atol=1e-4 * float(gp.abs().max()))
     assert torch.equal(g, SK.splat_bwd(*bwd))
+    # the slots past the count change no bit: the exact list (the valid
+    # prefix alone) gives the same mask and slot gradients
+    m = int(b.count)
+    assert m < b.entries.numel()
+    exact = (b.entries[:m].clone(), b.ecell[:m].clone())
+    assert torch.equal(SK.splat_fwd(col, row, *exact, *args[4:]), mask)
+    assert torch.equal(SK.splat_bwd(col, row, *exact, *bwd[4:]), g)
     # the unchecked launchers count where they launch, whoever calls them
     trace.read_and_clear()
     SK.fwd(*args)
@@ -317,11 +454,12 @@ def test_kernels_match_plain_on_the_card():
                                gd, rtol=0, atol=1e-4 * float(gd.abs().max()))
     assert launches() == {"splat_fwd_cells_launches": 1,
                           "splat_bwd_cells_launches": 1}
-    # no entry: the wrappers launch nothing and count nothing
+    # no slot: the wrappers launch nothing and count nothing
     none = torch.zeros(0, dtype=torch.int32, device="cuda")
-    m0 = SK.splat_fwd(col, row, none, none, none, none, none, 8, b.ncx, H, W,
-                      args[-1])
-    g0 = SK.splat_bwd(col, row, none, none, g_img, m0, 8, b.ncx, args[-1],
-                      4 * col.shape[0])
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    m0 = SK.splat_fwd(col, row, none, none, zero, none, none, 8, b.ncx, H,
+                      W, args[-1])
+    g0 = SK.splat_bwd(col, row, none, none, zero, g_img, m0, 8, b.ncx,
+                      args[-1], 4 * col.shape[0])
     assert (m0 == 0).all() and (g0 == 0).all()
     assert launches() == {}

@@ -205,12 +205,28 @@ def test_solve_converged_counts(runs):
 def test_host_syncs_count_the_same_sites_every_step(runs):
     tr, recs, _ = runs[True]
     n = [rec["counters"]["host_syncs"] for rec in recs]
-    # per splatted frame point_seeds' 4, the binning's 1 and cell_bins' 3;
-    # then the readback
-    assert n[1] == n[2] == 8 * tr.stage_cfg.N + 1
+    # the readback alone: the ray seeds and the splat's binning read nothing
+    assert n[1] == n[2] == 1
     assert n[0] > n[1]                    # the remesh's own syncs
     # the off run counts them too: the host counter is always on
     assert [rec["counters"]["host_syncs"] for rec in runs[False][1]] == n
+
+
+def test_splat_entries_count_each_frames_valid_entries(runs):
+    """One row a splatted frame, read with the step's readback: the
+    frame's valid entries, at most its 4 slots a template vertex."""
+    tr, recs, _ = runs[True]
+    N = tr.stage_cfg.N
+    for rec in recs:
+        rows = rec["device"]["splat_entries"]
+        slots = rec["counters"]["splat_slots"]
+        assert len(rows) == N and all(len(r) == 1 for r in rows)
+        assert slots % (4 * N) == 0
+        assert all(0 < r[0] <= slots // N for r in rows)
+    assert "splat_entries" not in runs[False][1][0]["device"]
+    # the host counter of the slots is always on
+    assert runs[False][1][0]["counters"]["splat_slots"] == \
+        recs[0]["counters"]["splat_slots"]
 
 
 def test_tracing_changes_no_bit_of_the_step(runs):
@@ -237,6 +253,11 @@ def test_trace_report_line():
     assert line == ("trace epoch 3 (2 steps; ms per step, duration/self): "
                     "train_step 1100.0/150.0, step.outer 400.0/150.0; "
                     "host_syncs 4.5 per step; solve_converged 2.0 3.0")
+    line = trace_report(3, {"spans": spans,
+                            "counters": {"host_syncs": 2, "splat_slots": 80},
+                            "device": {"splat_entries": [[7], [9]]}})
+    assert line.endswith("host_syncs 1.0 per step; splat_entries 8.0 of "
+                         "40.0 slots a frame")
     graphs = {"host_syncs": 9, "solve_graph_captures": 1,
               "solve_graph_replays": 1}
     assert trace_report(3, {"spans": spans, "counters": graphs,
@@ -276,10 +297,11 @@ def test_train_cli_trace_flag(tmp_path, capsys):
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("trace epoch")]
     assert len(lines) == 1 and lines[0].startswith("trace epoch 0 (1 steps")
-    for name in STEP_SPANS + ("remesh", "host_syncs", "solve_converged"):
+    for name in STEP_SPANS + ("remesh", "host_syncs", "solve_converged",
+                              "splat_entries"):
         assert f" {name} " in lines[0], name
-    assert len(lines[0].split("solve_converged ")[1].split()) == \
-        SURF_ITERS + 1
+    assert len(lines[0].split("solve_converged ")[1].split(";")[0]
+               .split()) == SURF_ITERS + 1
     assert trace.read_and_clear()["spans"] == []
     assert not cli.parse_args(["--conf", "c", "--data", "d",
                                "--save-folder", "s"]).trace
