@@ -7,12 +7,16 @@ that the algorithm takes through a net costs as much again: one reverse
 pass for a gradient with respect to the points, and one for the weight
 gradient of a net that the pass trains.  Counted per step (P rays, N
 frames, nv template vertices, T = min(4096, nv) template vertices in the
-point terms, A = min(16384, nv) anchor vertices, I Newton iterations):
+point terms, A anchor vertices, I solver iterations):
 
   geom      translator forward on the N*nv posed template vertices
   inner     translator forward, point and weight gradients on N*nv
-  solve     I + 1 evaluations at P points, each: SDF forward and point
-            gradient, translator forward and its three Jacobian rows
+  solve     Gauss-Newton: I + 1 evaluations at P points, each: SDF forward
+            and point gradient, translator forward and its three Jacobian
+            rows.  Cauchy steps: I evaluations at P points with the point
+            gradient (SDF and translator forward, one reverse pass through
+            both), one more without it (the last convergence test), then
+            the Newton evaluation of B at the solution for the IFT
   IFT       SDF and translator forward at P, and their weight gradients
   eikonal   SDF forward, point and weight gradients at (P + T) * 7 / 6
   deform    translator forward, three Jacobian rows and the weight
@@ -21,7 +25,13 @@ point terms, A = min(16384, nv) anchor vertices, I Newton iterations):
             input and weight gradients, translator forward and three
             Jacobian rows at P; the normal loss adds the translator's
             weight gradient at P
-  anchor    SDF forward and weight gradient at A
+  anchor    SDF forward and weight gradient at A: min(anchor_sub, nv),
+            nv when anchor_sub is 0
+
+The solver and anchor_sub are the configuration's (``train.surf_newton``
+and ``train.anchor_sub``, defaults true and 16384), as the reference reads
+them (``reference/step.py::step_algorithm``); the program's own settings
+are not read.
 
 Second-order terms (the reverse passes of the eikonal and Jacobian
 gradients' own graphs) and every non-MLP product (skinning, the 3x3
@@ -61,16 +71,22 @@ def net_macs(conf: dict) -> Dict[str, int]:
 
 
 def step_flops(macs: Dict[str, int], P: int, N: int, nv: int, iters: int,
-               normal_loss: bool, def_regu: bool = True) -> float:
+               normal_loss: bool, def_regu: bool = True, newton: bool = True,
+               anchor_sub: int = 16384) -> float:
     """FLOPs of one step (see the module docstring)."""
     S, T, R = (2.0 * macs[k] for k in ("sdf", "translator", "render"))
     t = min(4096, nv)
-    a = min(16384, nv)
+    a = nv if anchor_sub == 0 else min(anchor_sub, nv)
     e = (P + t) + (P + t) // 6
     d = N * 2 * (P + t)
     f = T * N * nv                                   # geom
     f += 3 * T * N * nv                              # inner
-    f += (iters + 1) * P * (2 * S + 4 * T)           # solve
+    if newton:
+        f += (iters + 1) * P * (2 * S + 4 * T)       # solve
+    else:
+        f += iters * P * (2 * S + 2 * T)             # Cauchy steps
+        f += P * (S + T)                             # the last test
+        f += P * (2 * S + 4 * T)                     # B for the IFT
     f += P * (2 * S + 2 * T)                         # IFT
     f += 3 * S * e                                   # eikonal
     if def_regu:

@@ -144,11 +144,13 @@ def run(config: dict, stage_name: str, H: int, W: int, body_path: str,
         opt_times: int, lr: float, device, sdf_start: Dict[str, torch.Tensor],
         tf32: bool = False, rays_per_frame=None):
     """The reference's state: p0 (before the first step), g1 (the first
-    step's gradient as Adam took it), p3 (after the last), the losses, its
-    own remesh of sdf_start, the skinner table, its own fitted SDF, and the
-    share of the body's vertices that its own fit, sdf_start and the
-    initial SDF miss (``fit_misses``).  The steps start from the program's
-    fitted SDF (sdf_start) and the reference's own remesh of it."""
+    step's gradient as Adam took it), p3 (after the last), the losses, each
+    step's tied pixels where the configuration seeds from fragments
+    (``raster.py``), its own remesh of sdf_start, the skinner table, its
+    own fitted SDF, and the share of the body's vertices that its own fit,
+    sdf_start and the initial SDF miss (``fit_misses``).  The steps start
+    from the program's fitted SDF (sdf_start) and the reference's own
+    remesh of it."""
     with precision(tf32, device):
         return _run(config, stage_name, H, W, body_path, scene, init_nets,
                     init_codes, seed, fids, opt_times, lr, device, sdf_start,
@@ -232,7 +234,7 @@ def _run(config, stage_name, H, W, body_path, scene, init_nets, init_codes,
 
     p0 = state()
     p0["template"] = verts.clone()
-    g1, losses = {}, []
+    g1, losses, ties = {}, [], []
     for i, f in enumerate(fids):
         gtC, gtM, gtN = read_frames(scene, f, device)
         ft = torch.as_tensor(np.asarray(f), device=device)
@@ -241,9 +243,12 @@ def _run(config, stage_name, H, W, body_path, scene, init_nets, init_codes,
         ratios = (1.0, opt_times / 2500.0 + 0.5, 1.0)
         verts, mom, info, g_tmp = step(nets, skinner, stage, dctnull, ang,
                                        opt, bank, verts, mom, gtC, gtM, gtN,
-                                       ft, win, ratios, lr, draws)
+                                       ft, win, ratios, lr, draws,
+                                       faces=own_faces)
         opt_times += 1
         losses.append(info["loss"])
+        if "raster_ties" in info:
+            ties.append(int(info["raster_ties"]))
         if i == 0:
             g1 = {k: (p.grad.detach().clone() if p.grad is not None
                       else torch.zeros_like(p))
@@ -254,6 +259,7 @@ def _run(config, stage_name, H, W, body_path, scene, init_nets, init_codes,
     p3 = state()
     p3["template"] = verts.clone()
     return {"p0": p0, "g1": g1, "p3": p3, "losses": losses,
+            "raster_ties": ties,
             "template": (own_verts, own_faces),
             "skinner_ws": skinner.ws, "sdf_fit": sdf_fit,
             "fit_miss": fit_miss, "start_miss": start_miss,

@@ -1,12 +1,24 @@
 """One training step of SelfRecon in plain PyTorch: the geom pass (ray
-seeds from the nearest projected template vertex), the inner pass (the
-splat silhouette's IoU and the deformation-consistency term, SGD with
-momentum on the template) and the outer pass (the surface points by
-Newton with their implicit-function-theorem gradient, the eikonal,
-deformation, DCT, colour, normal and SDF-anchor terms, then Adam), for one
-process and one device.  The same equations as the port's
-``engine/trainer.py::make_train_step``; the splat is
-``reference/splat.py``'s dense form, not the port's kernels."""
+seeds), the inner pass (the splat silhouette's IoU and the
+deformation-consistency term, SGD with momentum on the template) and the
+outer pass (the surface points with their implicit-function-theorem
+gradient, the eikonal, deformation, DCT, colour, normal and SDF-anchor
+terms, then Adam), for one process and one device.  The same equations as
+the port's ``engine/trainer.py::make_train_step``; the splat is
+``reference/splat.py``'s dense form, not the port's kernels.
+
+Three keys of the configuration's ``train`` block choose the step's
+algorithm (``stage_from_conf``); by default the port's departures from the
+published step, which every cell runs:
+
+  point_inits  seeds from the nearest projected template vertex (true) or,
+               as published, from the nearest rasterized face at its
+               barycentrics (false; ``reference/raster.py``)
+  surf_newton  the surface solve by Gauss-Newton (true) or, as published,
+               by Cauchy steps (false; ``reference/surface.py``)
+  anchor_sub   the SDF anchor over that many template vertices drawn at
+               random (16384), or over every vertex (0, as published)
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -21,6 +33,7 @@ from .camera import Camera, cam_pos, transform_points_screen, view_rays
 from .deformer import deformer_apply, deformer_jacobian, point_jacobian
 from .mathops import (gm_robust, inv3x3, log_singular_values_sq_sum,
                       normalize, quat2mat)
+from .raster import fragment_seeds
 from .render import RenderNet
 from .sampling import sample_points, subsample_mask_topk
 from .sdf import SDFNet, sdf_grad, sdf_value_and_grad
@@ -30,8 +43,9 @@ from .surface import SurfaceConfig, surface_points
 from .translator import TranslatorNet
 
 EIK_TMP = 4096        # template vertices in the eikonal and deformation terms
-ANCHOR_SUB = 16384    # template vertices in the SDF anchor
-SURF_ITERS = 10       # Newton iterations of the surface solve in training
+ANCHOR_SUB = 16384    # template vertices in the SDF anchor (anchor_sub's
+                      # default)
+SURF_ITERS = 10       # iterations of the surface solve in training
 
 
 @dataclass(frozen=True)
@@ -49,6 +63,9 @@ class Stage:
     window: int
     trainable: Dict[str, bool]      # the bank leaves' flags
     has_normals: bool
+    point_inits: bool = True        # False: seeds from rasterized faces
+    surf_newton: bool = True        # False: the Cauchy surface solve
+    anchor_sub: int = ANCHOR_SUB    # 0: the anchor over every vertex
 
     def rays(self) -> int:
         return self.rays_per_frame * self.N
@@ -58,9 +75,24 @@ def _f(x) -> float:
     return float(x)
 
 
+def step_algorithm(conf: dict) -> Dict[str, object]:
+    """The step's algorithm, from three optional keys of a configuration
+    tree's ``train`` block, named as the port's ``StageStatic`` fields, each
+    defaulting to the port's departure from the published step:
+    ``point_inits`` (bool, default true; false seeds the rays from the
+    rasterized template), ``surf_newton`` (bool, default true; false solves
+    by Cauchy steps) and ``anchor_sub`` (int, default 16384; 0 anchors
+    every vertex)."""
+    tr = conf["train"]
+    return {"point_inits": bool(tr.get("point_inits", True)),
+            "surf_newton": bool(tr.get("surf_newton", True)),
+            "anchor_sub": int(tr.get("anchor_sub", ANCHOR_SUB))}
+
+
 def stage_from_conf(conf: dict, name: str, H: int, W: int, resolutions,
                     window: int, has_normals: bool) -> Stage:
-    """The stage `name` of a configuration tree (config.conf as a dict)."""
+    """The stage `name` of a configuration tree (config.conf as a dict),
+    with the step's algorithm of ``step_algorithm``."""
     tr = conf["train"]
     pr = tr[name]["point_render"]
     lw = conf[f"loss_{name}"]
@@ -95,7 +127,7 @@ def stage_from_conf(conf: dict, name: str, H: int, W: int, resolutions,
                  resolutions=tuple(tuple(int(v) for v in r)
                                    for r in resolutions),
                  weights=weights, window=window, trainable=trainable,
-                 has_normals=has_normals)
+                 has_normals=has_normals, **step_algorithm(conf))
 
 
 class Nets(nn.Module):
@@ -137,7 +169,8 @@ def draw_noise(stage: Stage, nv: int, generator, device) -> Draws:
         eik_normal=torch.randn(S, 3, **kw),
         eik_uniform=torch.rand(S // 6, 3, **kw),
         def_normal=torch.randn(S, 3, **kw),
-        anchor_scores=torch.rand(nv, **kw) if 0 < ANCHOR_SUB < nv else None)
+        anchor_scores=(torch.rand(nv, **kw) if 0 < stage.anchor_sub < nv
+                       else None))
 
 
 def camera(bank, stage: Stage) -> Camera:
@@ -180,10 +213,12 @@ def point_seeds(cam: Camera, verts, def_verts):
 
 def step(nets: Nets, skinner, stage: Stage, dctnull: np.ndarray,
          ang_thresh_deg: float, optimizer, bank, verts, momentum, gtCs, gtMs,
-         gtNs, fids, windows, ratios, lr: float, draws: Draws):
+         gtNs, fids, windows, ratios, lr: float, draws: Draws, faces=None):
     """One step: updates the nets and the bank in place (Adam) and returns
     (new template verts, new momentum, info, the template's gradient).
-    Afterwards each leaf's .grad holds the masked gradient Adam took."""
+    Afterwards each leaf's .grad holds the masked gradient Adam took.
+    faces, the template's, are read when the stage seeds from fragments;
+    info's ``raster_ties`` then counts the tied pixels of its frames."""
     w = stage.weights
     N, H, W = stage.N, stage.H, stage.W
     P = stage.rays()
@@ -209,7 +244,10 @@ def step(nets: Nets, skinner, stage: Stage, dctnull: np.ndarray,
         poses, trans, dcond = frame_params()
         dv = deformer_apply(translator, skinner, verts.repeat(N, 1), binds_v,
                             dcond, poses, trans, r_def)[0].reshape(N, nv, 3)
-        inits, covers = point_seeds(cam, verts, dv)
+        if stage.point_inits:
+            inits, covers = point_seeds(cam, verts, dv)
+        else:
+            inits, covers, ties = fragment_seeds(cam, verts, faces, dv)
         mgtMs = L.max_pool_mask(gtMs, radius_px)
         sel = covers & (gtMs > 0.0)
         idx, sel_ok = subsample_mask_topk(sel.reshape(-1), P,
@@ -227,6 +265,8 @@ def step(nets: Nets, skinner, stage: Stage, dctnull: np.ndarray,
     mask_loss = L.iou_mask_loss(masks, mgtMs)
     pc_loss = mask_loss * w["pc_mask"]
     info = {"pc_mask_loss": mask_loss.detach()}
+    if not stage.point_inits:
+        info["raster_ties"] = torch.tensor(ties)
     valid_v = torch.ones(nv, dtype=torch.bool, device=dev)
     if w["def_consistent"] > 0.0:
         lbs_b = skinner_apply_shared(skinner, tv, poses, trans)
@@ -249,7 +289,8 @@ def step(nets: Nets, skinner, stage: Stage, dctnull: np.ndarray,
     pix = torch.stack([ray_cols.float(), ray_rows.float(),
                        torch.ones(n_rays, device=dev)], dim=-1)
     rays_w = view_rays(cam, pix)
-    surf_cfg = SurfaceConfig(n_iters=SURF_ITERS, athreshold_deg=ang_thresh_deg)
+    surf_cfg = SurfaceConfig(n_iters=SURF_ITERS, athreshold_deg=ang_thresh_deg,
+                             newton=stage.surf_newton)
     pts, done = surface_points((sdf_net, translator, skinner), surf_cfg, r_sdf,
                                r_def, dcond, poses, trans, rays_w,
                                cam_pos(cam), init_pts, ray_binds)
@@ -335,7 +376,7 @@ def step(nets: Nets, skinner, stage: Stage, dctnull: np.ndarray,
         info["normal_loss"] = normal_loss
         total = total + w["normal"] * normal_loss
     if draws.anchor_scores is not None:
-        aidx, avalid = subsample_mask_topk(valid_v, ANCHOR_SUB,
+        aidx, avalid = subsample_mask_topk(valid_v, stage.anchor_sub,
                                            scores=draws.anchor_scores)
         averts = nvn[aidx]
     else:

@@ -33,7 +33,9 @@ if ROOT not in sys.path:
 
 @dataclass
 class RunRecord:
-    """What the metric readers read (``metrics/<metric>.py``)."""
+    """What the metric readers read (``metrics/<metric>.py``).  The
+    solver's iterations, the solver and the anchor are the configuration's
+    algorithm as the reference runs it, not the program's settings."""
     config: dict
     setup_s: float
     window_s: float
@@ -43,6 +45,8 @@ class RunRecord:
     iters: int
     normal_loss: bool
     def_regu: bool
+    newton: bool = True
+    anchor_sub: int = 16384
     traced: list = field(default_factory=list)
     trace: Dict[str, object] = field(default_factory=dict)
     extra: Dict[str, float] = field(default_factory=dict)
@@ -80,6 +84,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
     from benchmark.correctness import judge, numbers
     from benchmark.imports_check import loaded_violations
     from benchmark.reference import run as ref
+    from benchmark.reference.step import SURF_ITERS, step_algorithm
     from benchmark.session import Session
 
     t0 = T0 if t0 is None else t0
@@ -98,12 +103,15 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
         s.window(seconds)
         t_win = time.perf_counter()
         stage = s.trainer.stage_cfg
+        alg = step_algorithm(cell.config["conf"])
         rec = RunRecord(
             config=cell.config, setup_s=setup_s, window_s=s.window_s,
             steps=s.window_record, rays=stage.rays(), frames=stage.N,
-            iters=stage.surf_iters,
+            iters=SURF_ITERS,
             normal_loss=stage.has_normals and stage.weights.normal_weight > 0,
-            def_regu=stage.weights.def_regu_weight > 0, extra=s.extra)
+            def_regu=stage.weights.def_regu_weight > 0,
+            newton=alg["surf_newton"], anchor_sub=alg["anchor_sub"],
+            extra=s.extra)
         wanted = cell.per_layer if trace else cell.end_to_end
         device_info = {"platform": "gpu" if cuda else "cpu",
                        "kind": (torch.cuda.get_device_name(0) if cuda
@@ -114,6 +122,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
             rec.traced, host_step = s.traced_steps(
                 int(cell.traffic["profile_steps"]))
             rec.trace = summary(rec.traced, host_step)
+            log(f"traced device seconds: splat kernels "
+                f"{rec.trace['splat_device_s']!r}, mesh raster kernel "
+                f"{rec.trace['raster_device_s']!r}")
             for m in wanted:
                 measure = getattr(metric_module(m["name"]), "measure", None)
                 if measure is not None:
@@ -154,6 +165,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
                                       zip(s.prog.losses, r["losses"])]
         other["misses"] = {k: r[k] for k in ("fit_miss", "start_miss",
                                              "unfit_miss")}
+        if r["raster_ties"]:
+            other["raster_ties"] = r["raster_ties"]
         log(f"diagnostics: {json.dumps(other)}")
         for name, kw in (variants or {}).items():
             other[name] = variant_numbers(cell, ref, base, r, s, states, mine,

@@ -297,10 +297,11 @@ class Session:
 
     # -- the traced steps ----------------------------------------------------
     @torch.no_grad()
-    def splat_centres(self, fids):
-        """Per frame of the next step, the template's splat centres (col,
-        row, depth) as the splat sees them, from the program's state by the
-        reference's deformer and camera: the splat yardstick's input."""
+    def screen_vertices(self, fids):
+        """Per frame of the next step, the template's vertices on the
+        screen (col, row, depth) as its geom and inner passes deform them,
+        from the program's state by the reference's deformer and camera:
+        what the splat and raster yardsticks read."""
         from .reference.camera import Camera, transform_points_screen
         from .reference.deformer import deformer_apply
         from .reference.mathops import quat2mat
@@ -321,9 +322,23 @@ class Session:
                      R=quat2mat(b["cam2world_coord_quat"].reshape(1, 4))[0],
                      T=b["world2cam_coord_trans"].reshape(3), H=cfg.H,
                      W=cfg.W)
+        return [transform_points_screen(cam, d) for d in dv]
+
+    def yardstick_inputs(self, fids):
+        """(splat inputs, raster inputs) of the next step's frames: per
+        frame the splat centres with the radius in pixels and the image
+        size; and, where the configuration seeds the rays from fragments,
+        the deformed template's screen vertices with its faces and the
+        image size (none otherwise)."""
+        from .reference.step import step_algorithm
+        cfg = self.trainer.stage_cfg
+        screens = self.screen_vertices(fids)
         r_pix = cfg.radius * cfg.W / 2.0
-        return [(transform_points_screen(cam, d), r_pix, cfg.H, cfg.W)
-                for d in dv]
+        splat = [(sc, r_pix, cfg.H, cfg.W) for sc in screens]
+        if step_algorithm(self.cell.config["conf"])["point_inits"]:
+            return splat, []
+        faces = self.trainer.tmp.faces.detach().clone()
+        return splat, [(sc, faces, cfg.H, cfg.W) for sc in screens]
 
     def traced_steps(self, n: int):
         """n steps under the profiler for the metrics, then one with the
@@ -337,8 +352,10 @@ class Session:
                 self.one_step()
                 continue
             fed = next(self.batches)
-            centres = self.splat_centres(fed[0]) if len(out) < n else []
+            splat, raster = (self.yardstick_inputs(fed[0]) if len(out) < n
+                             else ([], []))
             self._sync()
-            out.append(trace_step(lambda: self.one_step(fed), centres,
-                                  host_ops=len(out) == n))
+            out.append(trace_step(lambda: self.one_step(fed), splat,
+                                  host_ops=len(out) == n,
+                                  raster_inputs=raster))
         return out[:n], out[n]

@@ -1,7 +1,9 @@
 """The reference against the port at a tiny size on the CPU, and the
 comparison shown to fail: the control (the reference in TF32 in the
 program's place) and each fault a training cell can have, planted under a
-run that skips only the harness's look for a card."""
+run that skips only the harness's look for a card.  The same for the
+published step's branches, which the configuration's ``train`` keys
+select in the reference and ``Trainer.override_stage`` in the port."""
 import dataclasses
 
 import pytest
@@ -92,6 +94,55 @@ def test_window_remesh_is_checked():
     assert result["attempted"] >= 2 and result["correct"]
     values = dict((k, v) for k, v, _ in rows)
     assert values["remesh_gap"] == 0.0 and values["template_gap"] == 0.0
+
+
+PUBLISHED = {"point_inits": False, "surf_newton": False, "anchor_sub": 0}
+# at this size the template has ~900 vertices, so the default 16384 and 0
+# both anchor every vertex: 256 runs the subsample at another size
+ANCHOR_256 = {"anchor_sub": 256}
+
+
+def _configured(keys):
+    """tight-fine-1080 at the tiny size with the step's algorithm keys set
+    in its configuration (what the reference reads)."""
+    cell = tiny_cell("tight-fine-1080")
+    cell.config["conf"]["train"].update(keys)
+    return cell
+
+
+def _port_set(keys):
+    """The port set the same way, through its stage fields."""
+    def tune(session):
+        session.trainer.override_stage(**keys)
+    return tune
+
+
+@pytest.mark.parametrize("keys", [
+    {"point_inits": False}, {"surf_newton": False}, {"anchor_sub": 0},
+    PUBLISHED, ANCHOR_256],
+    ids=["fragment_seeds", "cauchy", "full_anchor", "published", "anchor_256"])
+def test_reference_follows_the_published_step(keys):
+    from benchmark.run import run_cell
+    result, rows, other = run_cell(_configured(keys), SEED + 4, 0.5, False,
+                                   device="cpu", tune=_port_set(keys))
+    values = {k: v for k, v, _ in rows}
+    assert result["correct"] and result["attempted"] > 0
+    assert values["skinner_gap"] == 0.0 and values["remesh_gap"] == 0.0
+    # the seeds, the solve and the anchor agree with the port's: the steps
+    # differ by the splat's summation order only
+    assert values["loss_gap"] < 1e-5 and values["grad_gap"] < 1e-4
+    assert ("raster_ties" in other) == (keys.get("point_inits") is False)
+
+
+@pytest.mark.parametrize("keys", [PUBLISHED, ANCHOR_256],
+                         ids=["published", "anchor_256"])
+def test_published_reference_against_the_default_port_fails(keys):
+    """The reference on the configuration's branches against the port at
+    its defaults: the comparison sees a swapped seeding, solver or anchor."""
+    from benchmark.run import run_cell
+    result, _, _ = run_cell(_configured(keys), SEED + 5, 0.5, False,
+                            device="cpu")
+    assert result["correct"] is False
 
 
 def _midpoint(real):

@@ -39,3 +39,16 @@ def test_summary():
     assert s["splat_device_s"] == pytest.approx(2 * 10e-6)
     assert s["device_ops"][0][0] in ("k2", "k1", "splat_fwd_kernel")
     assert len(s["idle_gaps"]) <= 10
+
+
+def test_summary_times_the_raster_kernel_apart():
+    """raster_device_s: the mesh raster kernel's launches (csrc/
+    mesh_raster.cu); 0 in a step that launches none."""
+    s = summary([step()], step())
+    assert s["raster_device_s"] == 0.0
+    with_raster = step()
+    with_raster.device.append(("void mesh_raster_kernel<256>(float const*)",
+                               70.0, 76.0))
+    s = summary([with_raster, step()], step())
+    assert s["raster_device_s"] == pytest.approx(6e-6)
+    assert s["splat_device_s"] == pytest.approx(2 * 10e-6)

@@ -19,6 +19,7 @@ STEP_SPAN = "benchmark.step"
 PROFILER_OWN = ("Activity Buffer Request",)   # the profiler's host work
 SPLAT_KERNELS = ("splat_fwd_kernel", "splat_fwd_merge_kernel",
                  "splat_bwd_kernel")
+RASTER_KERNELS = ("mesh_raster_kernel",)    # csrc/mesh_raster.cu
 
 
 @dataclass
@@ -27,6 +28,7 @@ class TracedStep:
     device: List[tuple]                   # (name, start, end) us
     host: List[tuple]                     # (name, start, end) us
     splat_inputs: list = field(default_factory=list)   # per frame
+    raster_inputs: list = field(default_factory=list)  # per frame
 
 
 def _events(prof):
@@ -45,10 +47,11 @@ def _events(prof):
     return dev, host
 
 
-def trace_step(run_step, splat_inputs, host_ops: bool = False) -> TracedStep:
+def trace_step(run_step, splat_inputs, host_ops: bool = False,
+               raster_inputs=()) -> TracedStep:
     """One step under the profiler (with host_ops, CPU activity too);
-    splat_inputs is what the splat yardstick needs for its frames, taken
-    before the step."""
+    splat_inputs and raster_inputs are what the splat and raster
+    yardsticks need for the step's frames, taken before the step."""
     from torch.profiler import ProfilerActivity, profile, record_function
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops
                                       else [])
@@ -66,7 +69,8 @@ def trace_step(run_step, splat_inputs, host_ops: bool = False) -> TracedStep:
         start, end = min(e[1] for e in ev), max(e[2] for e in ev)
     dev = [d for d in dev if d[1] >= start and d[2] <= end]
     return TracedStep((start, end), dev, [h for h in host
-                                          if h[0] != STEP_SPAN], splat_inputs)
+                                          if h[0] != STEP_SPAN], splat_inputs,
+                      list(raster_inputs))
 
 
 def busy_us(intervals) -> float:
@@ -110,10 +114,18 @@ def idle_gaps(step: TracedStep):
     return out
 
 
+def kernel_seconds(steps: List[TracedStep], names) -> float:
+    """Device seconds of the steps' kernels whose name holds one of
+    `names`."""
+    return sum((b - a) * 1e-6 for s in steps for n, a, b in s.device
+               if any(k in n for k in names))
+
+
 def summary(steps: List[TracedStep],
             host_step: TracedStep) -> Dict[str, object]:
     """busy and window seconds, activities and the device ops of the
-    metrics' steps; the idle gaps of host_step."""
+    metrics' steps, the splat's and the mesh raster's kernel seconds; the
+    idle gaps of host_step."""
     busy = sum(busy_us([(d[1], d[2]) for d in s.device]) for s in steps)
     win = sum(s.window[1] - s.window[0] for s in steps)
     by_name: Dict[str, float] = {}
@@ -127,9 +139,8 @@ def summary(steps: List[TracedStep],
     top_gaps = sorted(gaps.items(), key=lambda kv: -kv[1])[:10]
     return {"busy_s": busy * 1e-6, "window_s": win * 1e-6,
             "activities": sum(len(s.device) for s in steps),
-            "splat_device_s": sum((b - a) * 1e-6 for s in steps
-                                  for n, a, b in s.device
-                                  if any(k in n for k in SPLAT_KERNELS)),
+            "splat_device_s": kernel_seconds(steps, SPLAT_KERNELS),
+            "raster_device_s": kernel_seconds(steps, RASTER_KERNELS),
             "device_ops": [[n, v] for n, v in top],
             "idle_gaps": [[n, v] for n, v in top_gaps]}
 
